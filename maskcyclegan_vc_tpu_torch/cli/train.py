@@ -1,0 +1,95 @@
+"""Train CLI: both generators and all four discriminators, as the reference.
+
+Counterpart of ``maskcyclegan_vc_tpu/cli/train.py``, with its flag names
+and defaults, plus ``--device {cuda,cpu}`` (cuda by default, with no silent
+fallback). Compute is f32 with TF32 off. It writes the JAX trainer's
+checkpoint (``<save_dir>/<name>/ckpts/NNNNN_state.npz``), which either
+package resumes from or converts with.
+
+    python -m maskcyclegan_vc_tpu_torch.cli.train \\
+        --name mask_cyclegan_vc_VCC2SF3_VCC2TF1 --seed 0 --save_dir results/ \\
+        --preprocessed_data_dir vcc2018_preprocessed/vcc2018_training \\
+        --speaker_A_id VCC2SF3 --speaker_B_id VCC2TF1 \\
+        --num_epochs 6172 --batch_size 1 --num_frames 64 --max_mask_len 25 \\
+        --decay_after 200000 --epochs_per_save 100 --epochs_per_plot 10
+
+Not defined yet, so argparse rejects them: --dtype and --precision (f32
+only), --fused_norms (the port's kernels always run on the card),
+--scan_epochs (one device program per epoch; a CUDA graph is the later
+counterpart), --distributed and --grad_allreduce_dtype (data parallelism),
+--vocoder_ckpt and --plot_audio (audio logging waits for waveform decoding).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import numpy as np
+
+from maskcyclegan_vc_tpu_torch.cli.test import print_options
+from maskcyclegan_vc_tpu_torch.train.trainer import Trainer, TrainerArgs
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    d = TrainerArgs()
+    p.add_argument("--name", type=str, default=d.name)
+    p.add_argument("--save_dir", type=str, default=d.save_dir)
+    p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--speaker_A_id", type=str, default=d.speaker_A_id)
+    p.add_argument("--speaker_B_id", type=str, default=d.speaker_B_id)
+    p.add_argument("--preprocessed_data_dir", type=str, default=d.preprocessed_data_dir)
+    p.add_argument("--num_epochs", type=int, default=d.num_epochs)
+    p.add_argument("--batch_size", type=int, default=d.batch_size)
+    p.add_argument("--num_frames", type=int, default=d.num_frames)
+    p.add_argument("--num_frames_validation", type=int, default=320,
+                   help="accepted for the reference CLI's sake and ignored: "
+                        "validation converts whole utterances, as the "
+                        "reference's does")
+    p.add_argument("--max_mask_len", type=int, default=d.max_mask_len)
+    p.add_argument("--generator_lr", type=float, default=d.generator_lr)
+    p.add_argument("--discriminator_lr", type=float, default=d.discriminator_lr)
+    p.add_argument("--decay_after", type=float, default=d.decay_after)
+    p.add_argument("--stop_identity_after", type=float, default=d.stop_identity_after)
+    p.add_argument("--cycle_loss_lambda", type=float, default=d.cycle_loss_lambda)
+    p.add_argument("--identity_loss_lambda", type=float, default=d.identity_loss_lambda)
+    p.add_argument("--epochs_per_save", type=int, default=d.epochs_per_save)
+    p.add_argument("--epochs_per_plot", type=int, default=d.epochs_per_plot)
+    p.add_argument("--steps_per_print", type=int, default=d.steps_per_print)
+    p.add_argument("--max_ckpts", type=int, default=d.max_ckpts)
+    p.add_argument("--continue_train", action="store_true")
+    p.add_argument("--ref_compat_lr", action="store_true",
+                   help="reproduce the reference's learning-rate decay bug")
+    p.add_argument("--n_mels", type=int, default=d.n_mels)
+    p.add_argument("--residual_channels", type=int, default=d.residual_channels)
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each generator forward of the G step in its "
+                        "backward (less memory, more work)")
+    p.add_argument("--sample_rate", type=int, default=d.sample_rate)
+    p.add_argument("--async_save", type=int, choices=[0, 1], default=int(d.async_save),
+                   help="write checkpoint files on a thread while training goes on")
+    p.add_argument("--finite_check", choices=["off", "metrics", "params"],
+                   default=d.finite_check,
+                   help="metrics = raise at epoch end if any step's logged loss "
+                        "is not finite; params = also check the whole state "
+                        "before every checkpoint write")
+    p.add_argument("--device", type=str, default=d.device, choices=["cuda", "cpu"])
+    return p
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    print(print_options(args), flush=True)
+    np.random.seed(args.seed)
+    targs = TrainerArgs(**{f.name: getattr(args, f.name)
+                           for f in dataclasses.fields(TrainerArgs)})
+    targs.decay_after = int(targs.decay_after)
+    targs.stop_identity_after = int(targs.stop_identity_after)
+    targs.async_save = bool(targs.async_save)
+    Trainer(targs).train()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,15 @@
-// Affine InstanceNorm, alone or as the true-GLU pair IN(h) * sigmoid(IN(g)).
+// Affine InstanceNorm, alone, followed by swish, or as the true-GLU pair
+// IN(h) * sigmoid(IN(g)).
 //
 // Replaces maskcyclegan_vc_tpu/ops/pallas/in_gate_kernel.py:127
-// (_call_per_sample) for two of its entries:
-//   in_forward      <- instance_norm_fused     (:152, body _in_kernel     :77)
-//   in_glu_forward  <- instance_norm_glu_fused (:214, body _in_glu_kernel :101)
+// (_call_per_sample) for its three entries:
+//   in_forward       <- instance_norm_fused       (:152, body _in_kernel       :77)
+//   in_swish_forward <- instance_norm_swish_fused (:181, body _in_swish_kernel :89)
+//   in_glu_forward   <- instance_norm_glu_fused   (:214, body _in_glu_kernel   :101)
 // and, with `lengths`, the masked XLA InstanceNorm that the JAX generator
-// runs at the same call sites in bucketed conversion
-// (ops/layers.py:204-215 and :270-278).
+// and discriminator run at the same call sites on padded inputs
+// (ops/layers.py:204-215 and :270-278). Forward only: the backwards are
+// the JAX package's XLA formulas, written in PyTorch (ops/in_gate.py).
 //
 // Layout: NCHW. Each (sample, channel) is one contiguous row of S = H*W
 // floats whose last axis, of width W, is time. For the GLU the input is the
@@ -18,10 +21,12 @@
 //
 // Bound on an H100 SXM (3.35 TB/s): memory. The kernel must read each input
 // float once and write each output float once; the arithmetic is about ten
-// flops per element, two orders of magnitude under the f32 rate. The design
-// gives every row to one thread group (a warp for rows of up to
-// kWarpRowMaxS values, such as the 5120 rows of 112 in conv1dto2dLayer_tfan;
-// a block of kBlockThreads for long rows, such as downSample1's 8960), so the
+// flops per element (swish adds one exp), two orders of magnitude under the
+// f32 rate. The design gives every row to one thread group (a warp for rows
+// of up to kWarpRowMaxS values, such as the 5120 rows of 112 in
+// conv1dto2dLayer_tfan or the discriminator's downSample3 rows of 80 at 64
+// frames; a block of kBlockThreads for long rows, such as the generator's
+// downSample1 rows of 8960), so the
 // statistics need no second launch and no atomics. Its three passes over a
 // row (sum, centred squares, normalise and write) read the row three times;
 // the second and third reads hit a row the same group has just read, which
@@ -69,6 +74,9 @@ __device__ __forceinline__ float row_sum(float v, float* smem) {
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
+// What follows the normalisation: nothing, swish, or the GLU gate.
+enum Epilogue { kPlain = 0, kSwish = 1, kGlu = 2 };
+
 // Offset in a row of width W of the i-th valid position, when the first L
 // columns of each of the row's H lines are valid.
 __device__ __forceinline__ int valid_offset(int i, int L, int W) {
@@ -76,7 +84,7 @@ __device__ __forceinline__ int valid_offset(int i, int L, int W) {
   return h * W + (i - h * L);
 }
 
-template <bool kWarpRow, bool kGated>
+template <bool kWarpRow, int kEpilogue>
 __global__ void in_kernel(const float* __restrict__ x,
                           const float* __restrict__ scale_h,
                           const float* __restrict__ bias_h,
@@ -84,6 +92,7 @@ __global__ void in_kernel(const float* __restrict__ x,
                           const float* __restrict__ bias_g,
                           const int* __restrict__ lengths,
                           float* __restrict__ y, int B, int C, int S, int W) {
+  constexpr bool kGated = kEpilogue == kGlu;
   __shared__ float smem[33];
   int row, t, nt;
   if (kWarpRow) {
@@ -136,13 +145,14 @@ __global__ void in_kernel(const float* __restrict__ x,
     float out = 0.f;
     if (s % W < L) {
       out = xh[s] * ah + bh;
+      if (kEpilogue == kSwish) out = out / (1.f + expf(-out));
       if (kGated) out *= sigmoid(xg[s] * ag + bg);
     }
     yr[s] = out;
   }
 }
 
-template <bool kGated>
+template <int kEpilogue>
 int launch(const float* x, const float* scale_h, const float* bias_h,
            const float* scale_g, const float* bias_g, const int* lengths,
            float* y, int B, int C, int S, int W, void* stream) {
@@ -150,10 +160,10 @@ int launch(const float* x, const float* scale_h, const float* bias_h,
   const int rows = B * C;
   if (S <= kWarpRowMaxS) {
     const int blocks = (rows + kWarpRowsPerBlock - 1) / kWarpRowsPerBlock;
-    in_kernel<true, kGated><<<blocks, 32 * kWarpRowsPerBlock, 0, st>>>(
+    in_kernel<true, kEpilogue><<<blocks, 32 * kWarpRowsPerBlock, 0, st>>>(
         x, scale_h, bias_h, scale_g, bias_g, lengths, y, B, C, S, W);
   } else {
-    in_kernel<false, kGated><<<rows, kBlockThreads, 0, st>>>(
+    in_kernel<false, kEpilogue><<<rows, kBlockThreads, 0, st>>>(
         x, scale_h, bias_h, scale_g, bias_g, lengths, y, B, C, S, W);
   }
   return (int)cudaGetLastError();
@@ -167,8 +177,16 @@ extern "C" {
 int in_forward(const float* x, const float* scale, const float* bias,
                const int* lengths, float* y, int B, int C, int S, int W,
                void* stream) {
-  return launch<false>(x, scale, bias, nullptr, nullptr, lengths, y, B, C, S,
-                       W, stream);
+  return launch<kPlain>(x, scale, bias, nullptr, nullptr, lengths, y, B, C,
+                        S, W, stream);
+}
+
+// swish(IN(x)); the same layout as in_forward. Returns a cudaError_t.
+int in_swish_forward(const float* x, const float* scale, const float* bias,
+                     const int* lengths, float* y, int B, int C, int S, int W,
+                     void* stream) {
+  return launch<kSwish>(x, scale, bias, nullptr, nullptr, lengths, y, B, C,
+                        S, W, stream);
 }
 
 // x: (B, 2C, S) rows (h then g); y: (B, C, S). Returns a cudaError_t.
@@ -176,7 +194,7 @@ int in_glu_forward(const float* x, const float* scale_h, const float* bias_h,
                    const float* scale_g, const float* bias_g,
                    const int* lengths, float* y, int B, int C, int S, int W,
                    void* stream) {
-  return launch<true>(x, scale_h, bias_h, scale_g, bias_g, lengths, y, B, C,
+  return launch<kGlu>(x, scale_h, bias_h, scale_g, bias_g, lengths, y, B, C,
                       S, W, stream);
 }
 

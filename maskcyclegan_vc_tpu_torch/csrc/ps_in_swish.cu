@@ -1,31 +1,47 @@
-// Pixel-shuffle(2), then affine InstanceNorm, then swish, in one pass.
+// Pixel-shuffle(2), then affine InstanceNorm, then swish, in one pass; and
+// its fused backward.
 //
-// Replaces maskcyclegan_vc_tpu/ops/pallas/ps_kernel.py:344 (_sis_fwd_impl),
-// entry subpixel_in_swish (:371, body _ps_in_swish_kernel :96), forward
-// only; and, with `lengths`, the masked XLA form the JAX generator runs in
+// ps_in_swish_forward replaces maskcyclegan_vc_tpu/ops/pallas/ps_kernel.py:344
+// (_sis_fwd_impl), entry subpixel_in_swish (:371, body _ps_in_swish_kernel
+// :96), and, with `lengths`, the masked XLA form the JAX generator runs in
 // bucketed conversion (models/generator.py:303-306 and :319-322:
-// pixel_shuffle_nhwc, InstanceNorm with tm_up1/tm_up2, swish).
+// pixel_shuffle_nhwc, InstanceNorm with tm_up1/tm_up2, swish). Given the
+// optional `mean` and `inv` pointers it also writes each (sample, channel)'s
+// statistics, as the Pallas forward emits them for its backward.
+//
+// ps_in_swish_backward replaces ps_kernel.py:259 (_sis_bwd_pallas, body
+// _sis_bwd_kernel :185), the backward of subpixel_in_swish (:386-392): from
+// the forward's mean and inv it computes dx and each sample's dscale and
+// dbias, without re-reducing x for the statistics.
 //
 // Layout: NCHW. x is the upsample conv's (B, 4C, H, W) output in
 // torch.nn.PixelShuffle order, channel c*4 + q with q = 2i + j, so the four
 // rows of output channel c are contiguous in x. y is (B, C, 2H, 2W) with
 //   y[b, c, 2h+i, 2w+j] = swish(a * x[b, 4c+2i+j, h, w] + b)
 // where a, b fold the channel's statistics over its 2H x 2W output plane
-// with the affine scale and bias. lengths[b] (optional) counts the valid
-// output frames along 2W: the statistics take only the output columns
-// ow < lengths[b], over their count clamped to at least 1, and every output
-// at ow >= lengths[b] is written as 0. f32, two-pass, biased, eps 1e-5.
+// with the affine scale and bias. lengths[b] (optional, forward only)
+// counts the valid output frames along 2W: the statistics take only the
+// output columns ow < lengths[b], over their count clamped to at least 1,
+// and every output at ow >= lengths[b] is written as 0. f32, two-pass,
+// biased, eps 1e-5.
 //
-// Bound on an H100 SXM (3.35 TB/s): memory. The kernel must read the 4C
+// Bound on an H100 SXM (3.35 TB/s): memory. The forward must read the 4C
 // input rows once and write the shuffled tensor once, 8 bytes for each of
-// the 4*C*H*W elements; the arithmetic (about fifteen flops and one exp per
-// element) is far under the f32 rate. The design gives each output channel
-// to one block of kBlockThreads, which walks its plane in output order:
-// writes are fully coalesced, and each read pair (j = 0, 1) comes from two
-// input rows at the same column, so a warp's reads fall in two runs of 16
-// consecutive floats. The shuffle is pure index arithmetic, so the shuffled
-// tensor is written exactly once and never materialised unnormalised. As in
-// in_gate.cu, the three passes re-read from L2 rather than device memory.
+// the 4*C*H*W elements; the backward must read x and dy and write dx, 12
+// bytes each. The arithmetic (about fifteen flops and one exp per element
+// forward, about thirty backward) is far under the f32 rate. The design
+// gives each output channel to one block of kBlockThreads, which walks its
+// plane in output order: y (forward) and dy (backward) are fully coalesced,
+// and each pair of x or dx accesses (j = 0, 1) falls on two input rows at
+// the same column, so a warp touches two runs of 16 consecutive floats.
+// The shuffle is pure index arithmetic and is never materialised. The
+// forward's three passes and the backward's two re-read from L2 rather
+// than device memory at this model's sizes. The backward's pass A parks dz
+// in dx, as the Pallas kernel does (:223-253), so pass B needs no second
+// sigmoid: the parked value is written and read back by the same thread.
+// The per-sample dscale and dbias leave as (B, C) and the caller sums them
+// over B, so the result needs no atomics and does not depend on the order
+// in which blocks run.
 
 #include <cuda_runtime.h>
 
@@ -41,6 +57,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Sum over the whole block; every thread receives it. smem holds 33 floats.
+// The trailing barrier lets the next call overwrite smem safely.
 __device__ float block_sum(float v, float* smem) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   v = warp_sum(v);
@@ -67,7 +84,10 @@ __global__ void ps_in_swish_kernel(const float* __restrict__ x,
                                    const float* __restrict__ scale,
                                    const float* __restrict__ bias,
                                    const int* __restrict__ lengths,
-                                   float* __restrict__ y, int C, int H, int W) {
+                                   float* __restrict__ y,
+                                   float* __restrict__ mean_out,
+                                   float* __restrict__ inv_out, int C, int H,
+                                   int W) {
   __shared__ float smem[33];
   const int row = blockIdx.x;  // b * C + c
   const int b = row / C, c = row - b * C;
@@ -91,8 +111,13 @@ __global__ void ps_in_swish_kernel(const float* __restrict__ x,
     const float d = xr[source_offset(oh, i - oh * L, H, W)] - mean;
     q += d * d;
   }
-  const float a = rsqrtf(block_sum(q, smem) * inv_n + kEps) * scale[c];
+  const float inv = rsqrtf(block_sum(q, smem) * inv_n + kEps);
+  const float a = inv * scale[c];
   const float sh = bias[c] - mean * a;
+  if (mean_out && threadIdx.x == 0) {
+    mean_out[row] = mean;
+    inv_out[row] = inv;
+  }
 
   for (int o = threadIdx.x; o < S4; o += blockDim.x) {
     const int oh = o / W2, ow = o - oh * W2;
@@ -105,18 +130,82 @@ __global__ void ps_in_swish_kernel(const float* __restrict__ x,
   }
 }
 
+__global__ void ps_in_swish_backward_kernel(
+    const float* __restrict__ x, const float* __restrict__ dy,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    const float* __restrict__ mean_in, const float* __restrict__ inv_in,
+    float* __restrict__ dx, float* __restrict__ dscale,
+    float* __restrict__ dbias, int C, int H, int W) {
+  __shared__ float smem[33];
+  const int row = blockIdx.x;  // b * C + c
+  const int c = row % C;
+  const int W2 = 2 * W, S4 = 4 * H * W;
+  const float mean = mean_in[row], inv = inv_in[row];
+  const float a = inv * scale[c];
+  const float sh = bias[c] - mean * a;
+  const float* xr = x + (size_t)row * S4;
+  const float* dyr = dy + (size_t)row * S4;
+  float* dxr = dx + (size_t)row * S4;
+
+  // Pass A: dz = dy * swish'(z), parked in dx; sums of dz and dz * x.
+  float sdz = 0.f, sdzx = 0.f;
+  for (int o = threadIdx.x; o < S4; o += blockDim.x) {
+    const int oh = o / W2, ow = o - oh * W2;
+    const int k = source_offset(oh, ow, H, W);
+    const float xv = xr[k];
+    const float z = xv * a + sh;
+    const float sg = 1.f / (1.f + expf(-z));
+    const float dz = dyr[o] * (sg + z * sg * (1.f - sg));
+    dxr[k] = dz;
+    sdz += dz;
+    sdzx += dz * xv;
+  }
+  sdz = block_sum(sdz, smem);
+  sdzx = block_sum(sdzx, smem);
+  // sum(dz * xhat) = inv * (sum(dz * x) - mean * sum(dz)).
+  const float dsc = inv * (sdzx - mean * sdz);
+  if (threadIdx.x == 0) {
+    dscale[row] = dsc;
+    dbias[row] = sdz;
+  }
+
+  // Pass B: dx = a * (dz - sum(dz)/n - xhat * dscale/n), xhat = (x-mean)*inv.
+  const float inv_n = 1.f / (float)S4;
+  const float mdz = sdz * inv_n, mdzx = dsc * inv_n;
+  for (int o = threadIdx.x; o < S4; o += blockDim.x) {
+    const int oh = o / W2, ow = o - oh * W2;
+    const int k = source_offset(oh, ow, H, W);
+    const float xhat = (xr[k] - mean) * inv;
+    dxr[k] = a * (dxr[k] - mdz - xhat * mdzx);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// x: (B, 4C, H, W); y: (B, C, 2H, 2W); lengths: (B,) int32 or null.
+// x: (B, 4C, H, W); y: (B, C, 2H, 2W); lengths: (B,) int32 or null;
+// mean, inv: (B, C) f32 outputs, both null or both given.
 // Returns a cudaError_t.
 int ps_in_swish_forward(const float* x, const float* scale, const float* bias,
-                        const int* lengths, float* y, int B, int C, int H,
-                        int W, void* stream) {
+                        const int* lengths, float* y, float* mean, float* inv,
+                        int B, int C, int H, int W, void* stream) {
   ps_in_swish_kernel<<<B * C, kBlockThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      x, scale, bias, lengths, y, C, H, W);
+      x, scale, bias, lengths, y, mean, inv, C, H, W);
+  return (int)cudaGetLastError();
+}
+
+// x, dx: (B, 4C, H, W); dy: (B, C, 2H, 2W); mean, inv: (B, C) from the
+// forward; dscale, dbias: (B, C) per-sample outputs. Returns a cudaError_t.
+int ps_in_swish_backward(const float* x, const float* dy, const float* scale,
+                         const float* bias, const float* mean,
+                         const float* inv, float* dx, float* dscale,
+                         float* dbias, int B, int C, int H, int W,
+                         void* stream) {
+  ps_in_swish_backward_kernel<<<B * C, kBlockThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      x, dy, scale, bias, mean, inv, dx, dscale, dbias, C, H, W);
   return (int)cudaGetLastError();
 }
 

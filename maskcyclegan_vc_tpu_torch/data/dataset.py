@@ -1,18 +1,33 @@
-"""Per-speaker mel files in the reference's on-disk layout.
+"""Per-speaker mel files, and the training sampler on the device.
 
-Counterpart of ``load_speaker`` and ``save_speaker`` of
-``maskcyclegan_vc_tpu/data/dataset.py``: ``<dir>/<id>/<id>_normalized.pickle``
-holds the list of normalized (M, T) mels and ``<id>_norm_stat.npz`` the
-speaker's mean and std, (M, 1) each.
+Counterpart of ``maskcyclegan_vc_tpu/data/dataset.py``.
+``load_speaker`` and ``save_speaker`` keep the reference's on-disk layout:
+``<dir>/<id>/<id>_normalized.pickle`` holds the list of normalized (M, T)
+mels and ``<id>_norm_stat.npz`` the speaker's mean and std, (M, 1) each.
+
+``MelBank`` holds a speaker's corpus on the device as one padded array and
+``sample_batch`` draws a training batch there from a ``torch.Generator``,
+with the JAX sampler's distributions, per side and per slot:
+
+    utterance      ~ U{0..N-1}
+    crop start     = floor(u * (len - n_frames + 1)),  u ~ U[0, 1)
+    mask size      ~ U{0..max_mask_len-1}
+    mask start     = floor(u' * (n_frames - size)),    u' ~ U[0, 1)
+
+``step_generator`` seeds the generator from (seed, step), so a resumed run
+draws the batches an uninterrupted run draws: the contract of JAX's
+``fold_in(base_key, step)``, though not its bits.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
-from typing import List
+from typing import Dict, List
 
 import numpy as np
+import torch
 
 
 def save_speaker(out_dir: str, speaker_id: str, normalized: List[np.ndarray],
@@ -33,3 +48,65 @@ def load_speaker(data_dir: str, speaker_id: str):
     with np.load(os.path.join(d, f"{speaker_id}_norm_stat.npz")) as stats:
         mean, std = stats["mean"], stats["std"]
     return [np.asarray(m, np.float32) for m in mels], mean, std
+
+
+@dataclasses.dataclass
+class MelBank:
+    """Padded utterance store on one device: data (N, M, Tmax), lengths (N,)."""
+
+    data: torch.Tensor
+    lengths: torch.Tensor
+
+    @staticmethod
+    def from_list(mels: List[np.ndarray], min_frames: int = 64,
+                  device="cpu") -> "MelBank":
+        """From (M, T) arrays, dropping those shorter than ``min_frames`` (the
+        reference's preprocessing drops short utterances)."""
+        kept = [m for m in mels if m.shape[1] >= min_frames]
+        if not kept:
+            raise ValueError("no utterances with enough frames")
+        tmax = max(m.shape[1] for m in kept)
+        data = np.zeros((len(kept), kept[0].shape[0], tmax), np.float32)
+        for i, m in enumerate(kept):
+            data[i, :, :m.shape[1]] = m
+        lengths = np.array([m.shape[1] for m in kept], np.int64)
+        return MelBank(torch.from_numpy(data).to(device),
+                       torch.from_numpy(lengths).to(device))
+
+    def __len__(self) -> int:
+        return self.data.shape[0]
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, step) alone."""
+    mixed = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(mixed) & (2 ** 63 - 1))
+
+
+def _sample_side(gen: torch.Generator, bank: MelBank, batch: int, n_frames: int,
+                 max_mask_len: int):
+    n, m, _ = bank.data.shape
+    dev = bank.data.device
+    utt = torch.randint(0, n, (batch,), generator=gen, device=dev)
+    lens = bank.lengths[utt]
+    u = torch.rand(batch, generator=gen, device=dev)
+    start = (u * (lens - n_frames + 1)).long().clamp_max(lens - n_frames)
+    t = torch.arange(n_frames, device=dev)
+    idx = (start[:, None] + t[None, :])[:, None, :].expand(batch, m, n_frames)
+    frames = torch.gather(bank.data[utt], 2, idx)
+
+    size = torch.randint(0, max_mask_len, (batch,), generator=gen, device=dev)
+    u2 = torch.rand(batch, generator=gen, device=dev)
+    mstart = (u2 * (n_frames - size)).long()
+    hole = (t[None, :] >= mstart[:, None]) & (t[None, :] < (mstart + size)[:, None])
+    mask = (~hole).to(torch.float32)[:, None, :].expand(batch, m, n_frames)
+    return frames, mask.contiguous()
+
+
+def sample_batch(gen: torch.Generator, bank_a: MelBank, bank_b: MelBank, batch: int,
+                 n_frames: int = 64, max_mask_len: int = 25) -> Dict[str, torch.Tensor]:
+    """A paired training batch of (batch, M, n_frames) crops and FIF masks
+    (1 = keep), drawn on the banks' device; side A first, then side B."""
+    real_a, mask_a = _sample_side(gen, bank_a, batch, n_frames, max_mask_len)
+    real_b, mask_b = _sample_side(gen, bank_b, batch, n_frames, max_mask_len)
+    return {"real_A": real_a, "mask_A": mask_a, "real_B": real_b, "mask_B": mask_b}

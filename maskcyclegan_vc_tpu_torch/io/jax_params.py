@@ -1,10 +1,14 @@
-"""Generator weights between the JAX package's tree and the port's state_dict.
+"""Weights and training state between the JAX package's trees and the port's.
 
 The JAX package keeps a flax tree, ``{"params": {...}}``, with HWIO conv
 kernels; the port keeps the reference's state_dict, with OIHW (OIK) conv
-weights and the reference's module names. These two functions map one onto
-the other (the same mapping as ``maskcyclegan_vc_tpu/io/torch_import.py``),
-on numpy leaves, and ``load_pth_tar`` reads a reference checkpoint.
+weights and the reference's module names. ``generator_params_*`` and
+``discriminator_params_*`` map one onto the other (the same mapping as
+``maskcyclegan_vc_tpu/io/torch_import.py``), on numpy leaves.
+``train_state_to_jax`` and ``train_state_from_jax`` carry a whole training
+state (params, both Adams' moments and counts, the step) as the flat npz
+keys the JAX trainer's checkpoint holds. ``load_pth_tar`` reads a reference
+checkpoint.
 """
 
 from __future__ import annotations
@@ -15,9 +19,14 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from maskcyclegan_vc_tpu_torch.models.discriminator import DEAD_PREFIX
+
 
 def _np(t) -> np.ndarray:
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    """A numpy copy of a tensor (never a view of its storage), or the array."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().to("cpu", copy=True).numpy()
+    return np.asarray(t)
 
 
 def _num_residual_blocks(names) -> int:
@@ -25,8 +34,8 @@ def _num_residual_blocks(names) -> int:
                 if (m := re.match(r"residualLayer(\d+)(?:\.|$)", n))})
 
 
-def _pairs(n_blocks: int):
-    """(state_dict module, JAX tree path, kind) for every leaf owner."""
+def _g_pairs(n_blocks: int):
+    """(state_dict module, JAX tree path, kind) for every generator leaf owner."""
     out = [("conv1", ("conv1", "conv"), "2d"),
            ("conv1_gates", ("conv1_gates", "conv"), "2d")]
     for ds in ("downSample1", "downSample2"):
@@ -53,21 +62,37 @@ def _pairs(n_blocks: int):
     return out
 
 
+def _d_pairs(include_dead: bool):
+    """The same for the discriminator. The dead block's four leaves sit
+    directly under ``params``, named ``downSample4_conv_kernel`` etc."""
+    out = [("convLayer1.0", ("convLayer1", "conv"), "2d")]
+    for ds in ("downSample1", "downSample2", "downSample3"):
+        out += [(f"{ds}.0", (ds, "convLayer", "conv"), "2d"),
+                (f"{ds}.1", (ds, "norm"), "norm")]
+    out.append(("outputConvLayer.0", ("outputConvLayer", "conv"), "2d"))
+    if include_dead:
+        out += [("downSample4.0", ("downSample4_conv_",), "dead2d"),
+                ("downSample4.1", ("downSample4_norm_",), "deadnorm")]
+    return out
+
+
 # JAX kernel layout -> torch weight layout, and the leaf names on each side.
-_TO_TORCH = {"2d": (3, 2, 0, 1), "1d": (2, 1, 0)}  # HWIO -> OIHW, KIO -> OIK
-_TO_JAX = {"2d": (2, 3, 1, 0), "1d": (2, 1, 0)}
-_LEAVES = {"2d": ("kernel", "bias"), "1d": ("kernel", "bias"), "norm": ("scale", "bias")}
+_TO_TORCH = {"2d": (3, 2, 0, 1), "dead2d": (3, 2, 0, 1), "1d": (2, 1, 0)}  # HWIO, KIO
+_TO_JAX = {"2d": (2, 3, 1, 0), "dead2d": (2, 3, 1, 0), "1d": (2, 1, 0)}
+_LEAVES = {"2d": ("kernel", "bias"), "dead2d": ("kernel", "bias"), "1d": ("kernel", "bias"),
+           "norm": ("scale", "bias"), "deadnorm": ("scale", "bias")}
 
 
-def generator_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX ``Generator`` params ``{"params": {...}}`` -> the port's state_dict."""
-    p = tree["params"]
+def _from_jax(p: Mapping, pairs) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
-    for name, path, kind in _pairs(_num_residual_blocks(p)):
-        leaf = p
-        for k in path:
-            leaf = leaf[k]
-        w, b = (_np(leaf[k]) for k in _LEAVES[kind])
+    for name, path, kind in pairs:
+        if kind.startswith("dead"):
+            w, b = (_np(p[path[0] + k]) for k in _LEAVES[kind])
+        else:
+            leaf = p
+            for k in path:
+                leaf = leaf[k]
+            w, b = (_np(leaf[k]) for k in _LEAVES[kind])
         if kind in _TO_TORCH:
             w = w.transpose(_TO_TORCH[kind])
         sd[f"{name}.weight"] = torch.from_numpy(np.array(w, np.float32, order="C"))
@@ -75,20 +100,149 @@ def generator_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def generator_params_to_jax(sd: Mapping) -> Dict:
-    """The port's (or the reference's) state_dict -> JAX ``{"params": {...}}``
-    with numpy leaves."""
+def _to_jax(sd: Mapping, pairs) -> Dict:
     p: Dict = {}
-    for name, path, kind in _pairs(_num_residual_blocks(sd)):
+    for name, path, kind in pairs:
         w = _np(sd[f"{name}.weight"])
         if kind in _TO_JAX:
             w = w.transpose(_TO_JAX[kind])
+        w, b = np.ascontiguousarray(w), _np(sd[f"{name}.bias"])
+        kw, kb = _LEAVES[kind]
+        if kind.startswith("dead"):
+            p[path[0] + kw], p[path[0] + kb] = w, b
+            continue
         node = p
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        kw, kb = _LEAVES[kind]
-        node[path[-1]] = {kw: np.ascontiguousarray(w), kb: _np(sd[f"{name}.bias"])}
+        node[path[-1]] = {kw: w, kb: b}
     return {"params": p}
+
+
+def generator_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``Generator`` params ``{"params": {...}}`` -> the port's state_dict."""
+    p = tree["params"]
+    return _from_jax(p, _g_pairs(_num_residual_blocks(p)))
+
+
+def generator_params_to_jax(sd: Mapping) -> Dict:
+    """The port's (or the reference's) state_dict -> JAX ``{"params": {...}}``
+    with numpy leaves."""
+    return _to_jax(sd, _g_pairs(_num_residual_blocks(sd)))
+
+
+def discriminator_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``Discriminator`` params -> the port's state_dict, with the dead
+    ``downSample4`` block where the tree holds it."""
+    p = tree["params"]
+    return _from_jax(p, _d_pairs("downSample4_conv_kernel" in p))
+
+
+def discriminator_params_to_jax(sd: Mapping) -> Dict:
+    """The port's (or the reference's) discriminator state_dict -> JAX
+    params, with the dead leaves where the state_dict holds them."""
+    return _to_jax(sd, _d_pairs(f"{DEAD_PREFIX}0.weight" in sd))
+
+
+# ---------------------------------------------------------------------------
+# Whole training state <-> the JAX trainer's checkpoint keys
+# ---------------------------------------------------------------------------
+#
+#   .step                                         int32
+#   .g_params/<A2B|B2A>/params/...                the generators
+#   .d_params/<A|B|A2|B2>/params/...              the discriminators, dead leaves too
+#   .g_opt/0/.count, .g_opt/1/.count              optax chain(scale_by_adam,
+#   .g_opt/0/.mu/<A2B|B2A>/params/..., .nu/...      scale_by_schedule): counts, moments
+#   .d_opt/.inner_state/0/.count, .../1/.count    the same under optax.masked, whose
+#   .d_opt/.inner_state/0/.mu/<A|...>/params/...    MaskedNode leaves no dead moments
+#
+# Both counts of an optimizer equal the number of updates it made, which is
+# torch Adam's per-parameter ``step``. Moments follow their weights' layout.
+
+_G_OPT, _D_OPT = ".g_opt/", ".d_opt/.inner_state/"
+
+
+def _flatten(tree: Mapping, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            _flatten(v, f"{prefix}/{k}", out)
+        else:
+            out[f"{prefix}/{k}"] = v
+
+
+def _subtree(flat: Mapping, prefix: str) -> Dict:
+    out: Dict = {}
+    for k, v in flat.items():
+        if k.startswith(prefix + "/"):
+            d = out
+            parts = k[len(prefix) + 1:].split("/")
+            for s in parts[:-1]:
+                d = d.setdefault(s, {})
+            d[parts[-1]] = v
+    if not out:
+        raise KeyError(f"no leaves under {prefix!r}")
+    return out
+
+
+def _moments(opt: torch.optim.Optimizer, module: torch.nn.Module, key: str):
+    """The module's live parameters' Adam moment (``exp_avg`` or
+    ``exp_avg_sq``) as a state_dict, zeros where Adam has made no step yet."""
+    out = {}
+    for name, p in module.named_parameters():
+        if name.startswith(DEAD_PREFIX):
+            continue
+        st = opt.state.get(p)
+        out[name] = st[key] if st else torch.zeros_like(p)
+    return out
+
+
+def _count(opt: torch.optim.Optimizer) -> int:
+    steps = {int(st["step"]) for st in opt.state.values()}
+    if len(steps) > 1:
+        raise ValueError(f"parameters of one optimizer at different steps: {steps}")
+    return steps.pop() if steps else 0
+
+
+def train_state_to_jax(state) -> Dict[str, np.ndarray]:
+    """A ``train.state.TrainState`` -> the flat npz entries the JAX trainer's
+    ``save_checkpoint(TrainState)`` writes. Every array is a host copy, safe
+    to write out while training goes on."""
+    flat: Dict[str, np.ndarray] = {".step": np.asarray(state.step, np.int32)}
+    sides = ((".g_params", _G_OPT, state.g, state.g_opt, generator_params_to_jax),
+             (".d_params", _D_OPT, state.d, state.d_opt, discriminator_params_to_jax))
+    for params_key, opt_key, models, opt, to_jax in sides:
+        for name, model in models.items():
+            _flatten(to_jax(model.state_dict()), f"{params_key}/{name}", flat)
+            for moment, key in ((".mu", "exp_avg"), (".nu", "exp_avg_sq")):
+                _flatten(to_jax(_moments(opt, model, key)),
+                         f"{opt_key}0/{moment}/{name}", flat)
+        count = _count(opt)
+        for i in (0, 1):
+            flat[f"{opt_key}{i}/.count"] = np.asarray(count, np.int32)
+    return flat
+
+
+def train_state_from_jax(flat: Mapping, state):
+    """Load the flat npz entries of a JAX trainer's checkpoint (or of
+    ``train_state_to_jax``) into ``state`` in place, and return it."""
+    state.step = int(flat[".step"])
+    sides = ((".g_params", _G_OPT, state.g, state.g_opt, generator_params_from_jax),
+             (".d_params", _D_OPT, state.d, state.d_opt, discriminator_params_from_jax))
+    for params_key, opt_key, models, opt, from_jax in sides:
+        counts = {int(flat[f"{opt_key}{i}/.count"]) for i in (0, 1)}
+        if len(counts) != 1:
+            raise ValueError(f"{opt_key}: Adam and schedule counts differ: {counts}")
+        count = counts.pop()
+        for name, model in models.items():
+            model.load_state_dict(from_jax(_subtree(flat, f"{params_key}/{name}")),
+                                  strict=True)
+            mu, nu = (from_jax(_subtree(flat, f"{opt_key}0/{m}/{name}"))
+                      for m in (".mu", ".nu"))
+            for pname, p in model.named_parameters():
+                if not pname.startswith(DEAD_PREFIX):
+                    opt.state[p] = {"step": torch.tensor(float(count)),
+                                    "exp_avg": mu[pname].to(p.device),
+                                    "exp_avg_sq": nu[pname].to(p.device)}
+    return state
 
 
 def load_pth_tar(path: str):

@@ -19,19 +19,24 @@ JAX checkpoint. Shape trace (B batch, M=80 mels, T frames, R=256):
 Every norm runs one of the port's kernels: IN-GLU 2 + num_residual_blocks
 times, IN 2 + num_residual_blocks times, pixel-shuffle + IN + swish twice.
 With ``lengths`` (bucketed conversion) each takes the valid length of its
-stage, as the JAX generator's per-stage time masks do.
+stage, as the JAX generator's per-stage time masks do. Without (training),
+they run through the kernels' autograd Functions wherever gradients are on.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 from torch import nn
 
 from maskcyclegan_vc_tpu_torch.ops.in_gate import time_mask
-from maskcyclegan_vc_tpu_torch.ops.layers import GatedConv2d, InstanceNorm, gated_conv
+from maskcyclegan_vc_tpu_torch.ops.layers import (
+    GatedConv2d,
+    InstanceNorm,
+    gated_conv,
+    init_conv_params,
+)
 from maskcyclegan_vc_tpu_torch.ops.ps import pixel_shuffle_in_swish
 
 
@@ -101,19 +106,8 @@ class Generator(nn.Module):
         self.to_empty(device=device)
         self.reset_parameters(generator)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        for m in self.modules():
-            if isinstance(m, (nn.Conv1d, nn.Conv2d)):
-                bound = 1.0 / math.sqrt(m.weight[0].numel())
-                for p in (m.weight, m.bias):
-                    p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
-                                                          generator=generator))
-            elif isinstance(m, InstanceNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
+        init_conv_params(self, generator or torch.Generator().manual_seed(0))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:

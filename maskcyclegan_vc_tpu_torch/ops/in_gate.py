@@ -1,8 +1,9 @@
-"""Affine InstanceNorm and the true-GLU pair IN(h) * sigmoid(IN(g)).
+"""Affine InstanceNorm, swish(IN(x)) and the true-GLU pair IN(h) * sigmoid(IN(g)).
 
 Counterpart of ``maskcyclegan_vc_tpu/ops/pallas/in_gate_kernel.py``
-(``instance_norm_fused``, ``instance_norm_glu_fused``) and of the masked
-InstanceNorm of ``maskcyclegan_vc_tpu/ops/layers.py``
+(``instance_norm_fused``, ``instance_norm_swish_fused``,
+``instance_norm_glu_fused`` and their custom_vjp backwards) and of the
+masked InstanceNorm of ``maskcyclegan_vc_tpu/ops/layers.py``
 (``_masked_moments``, ``instance_norm_apply``). Torch InstanceNorm
 numerics: per-(sample, channel) statistics over every axis after the
 channel, biased variance, eps 1e-5, f32, affine.
@@ -14,12 +15,18 @@ zeroes the output beyond them; ``lengths=None`` is the unmasked function.
 
 Each public function launches its CUDA kernel (``csrc/in_gate.cu``) for a
 tensor on the card and runs its ``*_plain`` version for a tensor on the
-CPU, and raises for anything else.
+CPU, and raises for anything else. Where an input requires grad, the
+unmasked function runs through a ``torch.autograd.Function`` whose forward
+is that same kernel or plain version and whose backward is the JAX
+package's own (``_in_bwd``, ``_insw_bwd``, ``_inglu_bwd``: XLA there, eager
+PyTorch here, one code for both devices), recomputing the statistics from
+the saved input. The masked functions have no backward: no training path
+runs them.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -29,6 +36,8 @@ EPS = 1e-5
 
 IN_KERNEL = CudaKernel("in_gate", "in_forward",
                        [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR])
+IN_SWISH_KERNEL = CudaKernel("in_gate", "in_swish_forward",
+                             [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR])
 IN_GLU_KERNEL = CudaKernel("in_gate", "in_glu_forward",
                            [PTR, PTR, PTR, PTR, PTR, PTR, PTR,
                             INT, INT, INT, INT, PTR])
@@ -63,6 +72,14 @@ def instance_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
     return y if m is None else y * m
 
 
+def instance_norm_swish_plain(x: torch.Tensor, scale: torch.Tensor,
+                              bias: torch.Tensor,
+                              lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """swish(IN(x)); swish(0) = 0 keeps the masked frames at zero."""
+    z = instance_norm_plain(x, scale, bias, lengths)
+    return z * torch.sigmoid(z)
+
+
 def instance_norm_glu_plain(hg: torch.Tensor, scale_h: torch.Tensor,
                             bias_h: torch.Tensor, scale_g: torch.Tensor,
                             bias_g: torch.Tensor,
@@ -94,29 +111,155 @@ def check_args(x: torch.Tensor, channels: int, vecs, lengths) -> None:
                                 or lengths.device != x.device
                                 or not lengths.is_contiguous()):
         raise ValueError(f"expected int32 lengths of shape ({x.shape[0]},) on {x.device}")
-    if (x.device.type == "cuda" and torch.is_grad_enabled()
-            and any(t.requires_grad for t in (x, *vecs))):
+
+
+def wants_grad(tensors: Sequence[torch.Tensor], lengths) -> bool:
+    """True where the call must record a backward; raises for a masked call
+    that would need one (the masked functions have none)."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
+        return False
+    if lengths is not None:
         raise NotImplementedError(
-            "the CUDA kernels are forward-only: run under torch.no_grad()")
+            "the masked (lengths) functions have no backward: run them under "
+            "torch.no_grad(), or pass lengths=None")
+    return True
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _launch_rows(kernel: CudaKernel, x: torch.Tensor, vecs, lengths,
+                 out_channels: int) -> torch.Tensor:
+    """One launch of an in_gate.cu entry over x's (B, C) rows."""
+    B = x.shape[0]
+    y = torch.empty((B, out_channels) + tuple(x.shape[2:]), device=x.device,
+                    dtype=x.dtype)
+    with torch.cuda.device(x.device):
+        kernel(x.data_ptr(), *(v.data_ptr() for v in vecs), _ptr(lengths),
+               y.data_ptr(), B, out_channels, x[0, 0].numel(), x.shape[-1],
+               torch.cuda.current_stream().cuda_stream)
+    return y
+
+
+def _in_forward(x, scale, bias, lengths=None):
+    if x.device.type == "cpu":
+        return instance_norm_plain(x, scale, bias, lengths)
+    return _launch_rows(IN_KERNEL, x, (scale, bias), lengths, x.shape[1])
+
+
+def _in_swish_forward(x, scale, bias, lengths=None):
+    if x.device.type == "cpu":
+        return instance_norm_swish_plain(x, scale, bias, lengths)
+    return _launch_rows(IN_SWISH_KERNEL, x, (scale, bias), lengths, x.shape[1])
+
+
+def _in_glu_forward(hg, scale_h, bias_h, scale_g, bias_g, lengths=None):
+    if hg.device.type == "cpu":
+        return instance_norm_glu_plain(hg, scale_h, bias_h, scale_g, bias_g, lengths)
+    return _launch_rows(IN_GLU_KERNEL, hg, (scale_h, bias_h, scale_g, bias_g),
+                        lengths, hg.shape[1] // 2)
+
+
+# ---------------------------------------------------------------------------
+# Backwards: the JAX package's custom_vjp formulas, in PyTorch
+# ---------------------------------------------------------------------------
+
+def _normalized(x: torch.Tensor):
+    """(xhat, inv) of x's per-(sample, channel) statistics, recomputed."""
+    dims = tuple(range(2, x.ndim))
+    mean = x.mean(dims, keepdim=True)
+    inv = torch.rsqrt((x - mean).square().mean(dims, keepdim=True) + EPS)
+    return (x - mean) * inv, inv
+
+
+def _affine_view(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    return v.view((1, -1) + (1,) * (ndim - 2))
+
+
+def in_backward(dz: torch.Tensor, xhat: torch.Tensor, inv: torch.Tensor,
+                scale: torch.Tensor):
+    """Gradient of z = xhat * scale + bias: (dx, dscale, dbias)
+    (``in_gate_kernel.py:161-174``)."""
+    dims = tuple(range(2, dz.ndim))
+    dscale = (dz * xhat).sum((0,) + dims)
+    dbias = dz.sum((0,) + dims)
+    a = _affine_view(scale, dz.ndim) * inv
+    dx = a * (dz - dz.mean(dims, keepdim=True)
+              - xhat * (dz * xhat).mean(dims, keepdim=True))
+    return dx, dscale, dbias
+
+
+class _InstanceNormFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias):
+        ctx.save_for_backward(x, scale, bias)
+        return _in_forward(x, scale, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, _ = ctx.saved_tensors
+        xhat, inv = _normalized(x)
+        return in_backward(dy, xhat, inv, scale)
+
+
+class _InstanceNormSwishFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias):
+        ctx.save_for_backward(x, scale, bias)
+        return _in_swish_forward(x, scale, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # in_gate_kernel.py:191-207
+        x, scale, bias = ctx.saved_tensors
+        xhat, inv = _normalized(x)
+        z = xhat * _affine_view(scale, x.ndim) + _affine_view(bias, x.ndim)
+        s = torch.sigmoid(z)
+        return in_backward(dy * (s + z * s * (1.0 - s)), xhat, inv, scale)
+
+
+class _InstanceNormGluFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hg, scale_h, bias_h, scale_g, bias_g):
+        ctx.save_for_backward(hg, scale_h, bias_h, scale_g, bias_g)
+        return _in_glu_forward(hg, scale_h, bias_h, scale_g, bias_g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # in_gate_kernel.py:226-258; h and g are hg's channel halves, and
+        # their gradients leave as one (B, 2C, ...) tensor, as hg came in.
+        hg, sh, bh, sg, bg = ctx.saved_tensors
+        h, g = hg.chunk(2, dim=1)
+        hhat, ih = _normalized(h)
+        ghat, ig = _normalized(g)
+        yh = hhat * _affine_view(sh, hg.ndim) + _affine_view(bh, hg.ndim)
+        s = torch.sigmoid(ghat * _affine_view(sg, hg.ndim) + _affine_view(bg, hg.ndim))
+        dh, dsh, dbh = in_backward(dy * s, hhat, ih, sh)
+        dg, dsg, dbg = in_backward(dy * yh * s * (1.0 - s), ghat, ig, sg)
+        return torch.cat([dh, dg], dim=1), dsh, dbh, dsg, dbg
+
+
+# ---------------------------------------------------------------------------
+# Public entries
+# ---------------------------------------------------------------------------
+
 def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Affine InstanceNorm of x (B, C, *spatial) -> the same shape."""
-    B, C = x.shape[:2]
-    check_args(x, C, (scale, bias), lengths)
-    if x.device.type == "cpu":
-        return instance_norm_plain(x, scale, bias, lengths)
-    y = torch.empty(x.shape, device=x.device, dtype=x.dtype)
-    with torch.cuda.device(x.device):
-        IN_KERNEL(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), _ptr(lengths),
-                  y.data_ptr(), B, C, x[0, 0].numel(), x.shape[-1],
-                  torch.cuda.current_stream().cuda_stream)
-    return y
+    check_args(x, x.shape[1] if x.ndim > 1 else 0, (scale, bias), lengths)
+    if wants_grad((x, scale, bias), lengths):
+        return _InstanceNormFn.apply(x, scale, bias)
+    return _in_forward(x, scale, bias, lengths)
+
+
+def instance_norm_swish(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                        lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """swish(IN(x)) of x (B, C, *spatial) -> the same shape."""
+    check_args(x, x.shape[1] if x.ndim > 1 else 0, (scale, bias), lengths)
+    if wants_grad((x, scale, bias), lengths):
+        return _InstanceNormSwishFn.apply(x, scale, bias)
+    return _in_swish_forward(x, scale, bias, lengths)
 
 
 def instance_norm_glu(hg: torch.Tensor, scale_h: torch.Tensor,
@@ -124,17 +267,11 @@ def instance_norm_glu(hg: torch.Tensor, scale_h: torch.Tensor,
                       bias_g: torch.Tensor,
                       lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """IN(h) * sigmoid(IN(g)): hg (B, 2C, *spatial) -> (B, C, *spatial)."""
-    B, C2 = hg.shape[:2]
-    if C2 % 2:
-        raise ValueError(f"expected an even channel count, got {C2}")
-    C = C2 // 2
-    check_args(hg, C, (scale_h, bias_h, scale_g, bias_g), lengths)
-    if hg.device.type == "cpu":
-        return instance_norm_glu_plain(hg, scale_h, bias_h, scale_g, bias_g, lengths)
-    y = torch.empty((B, C) + tuple(hg.shape[2:]), device=hg.device, dtype=hg.dtype)
-    with torch.cuda.device(hg.device):
-        IN_GLU_KERNEL(hg.data_ptr(), scale_h.data_ptr(), bias_h.data_ptr(),
-                      scale_g.data_ptr(), bias_g.data_ptr(), _ptr(lengths),
-                      y.data_ptr(), B, C, hg[0, 0].numel(), hg.shape[-1],
-                      torch.cuda.current_stream().cuda_stream)
-    return y
+    if hg.ndim < 2 or hg.shape[1] % 2:
+        raise ValueError(f"expected (B, 2C, ...) with an even channel count, "
+                         f"got {tuple(hg.shape)}")
+    vecs = (scale_h, bias_h, scale_g, bias_g)
+    check_args(hg, hg.shape[1] // 2, vecs, lengths)
+    if wants_grad((hg, *vecs), lengths):
+        return _InstanceNormGluFn.apply(hg, *vecs)
+    return _in_glu_forward(hg, *vecs, lengths)

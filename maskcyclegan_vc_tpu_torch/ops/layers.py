@@ -3,8 +3,9 @@
 Counterpart of ``maskcyclegan_vc_tpu/ops/layers.py``. Convolutions are
 ``nn.Conv2d``/``nn.Conv1d`` (cuDNN on the card) with torch's own symmetric
 padding. InstanceNorm is affine with eps 1e-5, biased variance and f32
-statistics; its forward and the true-GLU epilogue of a conv pair run the
-kernels of ``ops/in_gate.py``. The JAX package's ways of lowering convs
+statistics; it, its swish form (the discriminator's epilogue) and the
+true-GLU epilogue of a conv pair run the kernels of ``ops/in_gate.py``,
+whose autograd Functions give them gradients. The JAX package's ways of lowering convs
 through XLA (``tap_conv``, ``paired_conv``, ``conv1d_k3_matmul``) and its
 weight permutations have no counterpart: in NCHW the torch layout is already
 what the kernels read.
@@ -12,13 +13,18 @@ what the kernels read.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from maskcyclegan_vc_tpu_torch.ops.in_gate import instance_norm, instance_norm_glu
+from maskcyclegan_vc_tpu_torch.ops.in_gate import (
+    instance_norm,
+    instance_norm_glu,
+    instance_norm_swish,
+)
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -39,6 +45,27 @@ class InstanceNorm(nn.Module):
     def forward(self, x: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         return instance_norm(x, self.weight, self.bias, lengths)
+
+
+def init_conv_params(module: nn.Module, generator: torch.Generator) -> None:
+    """torch's default conv init, U(+-1/sqrt(fan_in)) for weights and biases,
+    drawn from ``generator`` in module order; norms to scale 1, bias 0."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv1d, nn.Conv2d)):
+                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                for p in (m.weight, m.bias):
+                    p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
+                                                          generator=generator))
+            elif isinstance(m, InstanceNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+
+
+def swish_instance_norm(x: torch.Tensor, norm: InstanceNorm,
+                        lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """swish(norm(x)) in one kernel: the discriminator's downsample epilogue."""
+    return instance_norm_swish(x, norm.weight, norm.bias, lengths)
 
 
 def gated_conv(x: torch.Tensor, conv_h: nn.Module, norm_h: InstanceNorm,

@@ -1,0 +1,105 @@
+"""Training configuration and state: two generators, four discriminators,
+two Adams and the step.
+
+Counterpart of ``maskcyclegan_vc_tpu/train/state.py``. The JAX package
+keeps one immutable pytree; here the state is the modules and optimizers
+themselves, updated in place by the train step. ``io.jax_params``
+``train_state_to_jax`` / ``train_state_from_jax`` carry it to and from the
+JAX trainer's checkpoint layout.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from maskcyclegan_vc_tpu_torch.models import Discriminator, Generator
+from maskcyclegan_vc_tpu_torch.train.schedules import (
+    ScheduleConfig,
+    discriminator_lr,
+    generator_lr,
+)
+
+G_NAMES = ("A2B", "B2A")
+D_NAMES = ("A", "B", "A2", "B2")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Model and optimizer construction. Compute is f32 with TF32 off; the
+    JAX package's lowering knobs (dtype, precision, fused_norms, k3_matmul,
+    split_gated_conv) have no counterpart: the port's kernels always run
+    on the card."""
+
+    schedule: ScheduleConfig = dataclasses.field(default_factory=ScheduleConfig)
+    n_mels: int = 80
+    num_frames: int = 64
+    residual_channels: int = 256
+    adam_b1: float = 0.5  # the reference's Adam settings
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    include_dead_params: bool = True
+    remat: bool = False  # recompute each G forward of the G step in its backward
+    # Batch same-params forwards (fake, identity and cycle rows through one
+    # generator call; each D's real and fake pair through one call).
+    # None = auto: on below 16 samples.
+    pair_forwards: Optional[bool] = None
+
+    def pair_forwards_resolved(self) -> bool:
+        if self.pair_forwards is None:
+            return self.schedule.batch_size < 16
+        return self.pair_forwards
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int                      # optimizer updates made; a host int
+    g: Dict[str, Generator]        # {"A2B", "B2A"}
+    d: Dict[str, Discriminator]    # {"A", "B", "A2", "B2"}
+    g_opt: torch.optim.Adam
+    d_opt: torch.optim.Adam
+
+    def g_params(self):
+        return [p for name in G_NAMES for p in self.g[name].parameters()]
+
+    def d_params(self):
+        """The discriminators' live parameters: the dead block has no
+        moments and is never updated, as the JAX package's masked optimizer
+        leaves it."""
+        return [p for name in D_NAMES for p in self.d[name].live_parameters()]
+
+    def set_learning_rates(self, sched: ScheduleConfig) -> None:
+        """Both Adams' lr for the coming update, from the schedule at the
+        step count before it (optax ``scale_by_schedule``'s count)."""
+        for opt, lr in ((self.g_opt, generator_lr(sched, self.step)),
+                        (self.d_opt, discriminator_lr(sched, self.step))):
+            for group in opt.param_groups:
+                group["lr"] = lr
+
+
+def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
+    """torch Adam matches optax ``scale_by_adam`` then ``-lr``: both compute
+    lr * m_hat / (sqrt(v_hat) + eps) with m_hat = m / (1 - b1^t) and
+    v_hat = v / (1 - b2^t), eps after the bias-corrected square root (torch
+    writes it as lr/(1-b1^t) * m / (sqrt(v)/sqrt(1-b2^t) + eps))."""
+    return torch.optim.Adam(params, lr=cfg.schedule.generator_lr,
+                            betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps)
+
+
+def create_train_state(cfg: TrainConfig, seed: int = 0, device="cpu") -> TrainState:
+    """Both generators and all four discriminators, torch's default init
+    drawn from seeded CPU generators (seed, seed+1 for A2B, B2A; seed+2..5
+    for A, B, A2, B2, as the JAX package seeds them), and both optimizers."""
+    device = torch.device(device)
+    g = {name: Generator(cfg.n_mels, cfg.residual_channels, device=device,
+                         generator=torch.Generator().manual_seed(seed + i))
+         for i, name in enumerate(G_NAMES)}
+    d = {name: Discriminator(cfg.residual_channels, cfg.include_dead_params, device=device,
+                             generator=torch.Generator().manual_seed(seed + 2 + i))
+         for i, name in enumerate(D_NAMES)}
+    state = TrainState(0, g, d, None, None)
+    state.g_opt = make_optimizer(cfg, state.g_params())
+    state.d_opt = make_optimizer(cfg, state.d_params())
+    return state

@@ -1,0 +1,204 @@
+"""Training loop: sampler -> train step -> logs -> checkpoints.
+
+Counterpart of ``maskcyclegan_vc_tpu/train/trainer.py``, one step at a time
+(the JAX package's ``lax.scan`` epochs have no counterpart yet). The
+identity-loss variant of the step switches off after
+``stop_identity_after // batch_size`` steps. Batches are drawn on the
+device from a generator seeded by (seed, step), so ``--continue_train``
+resumes the batch stream of an uninterrupted run. The loop reads the
+device only at the print cadence and once per epoch: then every step's
+logged losses are checked for finiteness, and a failing epoch's per-step
+values are written to the log before the run stops. However the loop ends,
+an in-flight checkpoint write is flushed and the logger closed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+
+from maskcyclegan_vc_tpu_torch.cli.test import make_convert_fn
+from maskcyclegan_vc_tpu_torch.data.dataset import (
+    MelBank,
+    load_speaker,
+    sample_batch,
+    step_generator,
+)
+from maskcyclegan_vc_tpu_torch.io.checkpoint import (
+    AsyncSaver,
+    checkpoint_path,
+    latest_epoch,
+    load_train_state,
+    rotate_checkpoints,
+    save_checkpoint,
+)
+from maskcyclegan_vc_tpu_torch.io.jax_params import train_state_to_jax
+from maskcyclegan_vc_tpu_torch.obs.logger import TrainLogger, to_host
+from maskcyclegan_vc_tpu_torch.train.schedules import ScheduleConfig
+from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, create_train_state
+from maskcyclegan_vc_tpu_torch.train.step import make_train_step
+from maskcyclegan_vc_tpu_torch.utils.debug import check_finite
+from maskcyclegan_vc_tpu_torch.utils.device import resolve_device
+
+LOGGED_METRICS = ("g_loss", "d_loss", "g_adv_loss", "g_cycle_loss",
+                  "g_identity_loss", "d_loss_first", "d_loss_second")
+
+
+@dataclasses.dataclass
+class TrainerArgs:
+    """Run-level settings, named as the reference's flags are."""
+
+    name: str = "mask_cyclegan_vc"
+    save_dir: str = "results"
+    seed: int = 0
+    speaker_A_id: str = "VCC2SF3"
+    speaker_B_id: str = "VCC2TF1"
+    preprocessed_data_dir: str = "vcc2018_preprocessed/vcc2018_training"
+    num_epochs: int = 6172
+    batch_size: int = 1
+    num_frames: int = 64
+    max_mask_len: int = 25
+    generator_lr: float = 2e-4
+    discriminator_lr: float = 1e-4
+    decay_after: int = 200_000
+    stop_identity_after: int = 10_000
+    cycle_loss_lambda: float = 10.0
+    identity_loss_lambda: float = 5.0
+    epochs_per_save: int = 100
+    epochs_per_plot: int = 10
+    steps_per_print: int = 100
+    max_ckpts: int = 0  # 0 = keep all
+    continue_train: bool = False
+    ref_compat_lr: bool = False
+    n_mels: int = 80
+    residual_channels: int = 256
+    remat: bool = False
+    sample_rate: int = 22050
+    async_save: bool = True
+    # "metrics": raise at epoch end if any step's logged loss is not
+    # finite; "params": also check the whole state before each checkpoint
+    # write, so a diverged run never overwrites its last good one.
+    finite_check: str = "metrics"
+    device: str = "cuda"
+
+
+class Trainer:
+    def __init__(self, args: TrainerArgs):
+        self.args = a = args
+        self.device = resolve_device(a.device)
+        self.mels_A, self.mean_A, self.std_A = load_speaker(
+            a.preprocessed_data_dir, a.speaker_A_id)
+        self.mels_B, self.mean_B, self.std_B = load_speaker(
+            a.preprocessed_data_dir, a.speaker_B_id)
+        self.bank_A = MelBank.from_list(self.mels_A, a.num_frames, self.device)
+        self.bank_B = MelBank.from_list(self.mels_B, a.num_frames, self.device)
+        sched = ScheduleConfig(
+            generator_lr=a.generator_lr, discriminator_lr=a.discriminator_lr,
+            decay_after=a.decay_after, stop_identity_after=a.stop_identity_after,
+            num_epochs=a.num_epochs, n_samples=min(len(self.bank_A), len(self.bank_B)),
+            batch_size=a.batch_size, identity_loss_lambda=a.identity_loss_lambda,
+            cycle_loss_lambda=a.cycle_loss_lambda, ref_compat_lr=a.ref_compat_lr)
+        self.cfg = TrainConfig(schedule=sched, n_mels=a.n_mels, num_frames=a.num_frames,
+                               residual_channels=a.residual_channels, remat=a.remat)
+        self.steps_per_epoch = sched.steps_per_epoch
+        self._identity_cutoff = a.stop_identity_after // a.batch_size
+        self._step_fns = {}
+
+        self.state = create_train_state(self.cfg, a.seed, self.device)
+        self.start_epoch = 1
+        self.ckpt_dir = os.path.join(a.save_dir, a.name, "ckpts")
+        if a.continue_train:
+            last = latest_epoch(self.ckpt_dir)
+            if last is not None:
+                load_train_state(checkpoint_path(self.ckpt_dir, last), self.state)
+                self.start_epoch = last + 1
+
+        self.logger = TrainLogger(a.save_dir, a.name, steps_per_print=a.steps_per_print,
+                                  config=dataclasses.asdict(a))
+        self._saver = AsyncSaver()
+
+    def step_fn(self, step: int):
+        """The step with identity terms up to the cutoff, without after it."""
+        wi = step <= self._identity_cutoff
+        if wi not in self._step_fns:
+            self._step_fns[wi] = make_train_step(self.cfg, with_identity=wi)
+        return self._step_fns[wi]
+
+    def train(self) -> None:
+        try:
+            self._run()
+        finally:
+            try:
+                self._saver.wait()
+            finally:
+                self.logger.close()
+
+    def _run(self) -> None:
+        a = self.args
+        step = self.state.step
+        for epoch in range(self.start_epoch, a.num_epochs + 1):
+            t0 = time.time()
+            rows = []
+            for _ in range(self.steps_per_epoch):
+                batch = sample_batch(step_generator(a.seed, step, self.device),
+                                     self.bank_A, self.bank_B, a.batch_size,
+                                     a.num_frames, a.max_mask_len)
+                self.state, metrics = self.step_fn(step)(self.state, batch)
+                step += 1
+                rows.append({k: metrics[k] for k in LOGGED_METRICS})
+                self.logger.log_iter(step, epoch, rows[-1], batch_size=a.batch_size)
+            self._check_metrics_finite(rows, epoch, step - len(rows) + 1)
+            if epoch % a.epochs_per_plot == 0:
+                self._plot(epoch)
+            if epoch % a.epochs_per_save == 0:
+                self._save(epoch)
+            self.logger.write(f"epoch {epoch} done in {time.time() - t0:.1f}s",
+                              console=False)
+
+    def _check_metrics_finite(self, rows, epoch: int, first_step: int) -> None:
+        """Every step's logged losses, read in one transfer; a failing
+        epoch's steps are written to the log before the error is raised."""
+        if self.args.finite_check == "off":
+            return
+        vals = to_host(rows)
+        try:
+            check_finite({f"step {first_step + i}": v for i, v in enumerate(vals)},
+                         f"train metrics at epoch {epoch}")
+        except FloatingPointError:
+            for i, v in enumerate(vals):
+                self.logger.write(" ".join([f"[epoch {epoch} step {first_step + i}]"]
+                                           + [f"{k}: {x:.5f}" for k, x in sorted(v.items())]))
+            raise
+
+    def _save(self, epoch: int) -> None:
+        path = checkpoint_path(self.ckpt_dir, epoch)
+        host = train_state_to_jax(self.state)  # copies off the device, synchronously
+        if self.args.finite_check == "params":
+            check_finite(host, f"train state at save epoch {epoch}")
+        meta = {"seed": self.args.seed, "epoch": epoch,
+                "mean_A": self.mean_A, "std_A": self.std_A,
+                "mean_B": self.mean_B, "std_B": self.std_B}
+
+        def rotate():
+            rotate_checkpoints(self.ckpt_dir, self.args.max_ckpts)
+
+        if self.args.async_save:
+            self._saver.save(path, host, meta, on_done=rotate)
+        else:
+            save_checkpoint(path, host, meta)
+            rotate()
+
+    def _plot(self, epoch: int) -> None:
+        """Spectrograms of one utterance per side and its conversion, through
+        the bucketed conversion path; a different utterance each time."""
+        idx = epoch // max(1, self.args.epochs_per_plot) - 1
+        real_A = self.mels_A[idx % len(self.mels_A)]
+        real_B = self.mels_B[idx % len(self.mels_B)]
+        fake_B = make_convert_fn(self.state.g["A2B"])(real_A)
+        fake_A = make_convert_fn(self.state.g["B2A"])(real_B)
+        panels = {"real_A_spec": real_A, "fake_B_spec": fake_B,
+                  "real_B_spec": real_B, "fake_A_spec": fake_A}
+        self.logger.log_spectrogram_grid(panels, epoch)
+        for tag, mel in panels.items():
+            self.logger.log_spectrogram(tag, mel, epoch)

@@ -10,12 +10,17 @@ Shapes cover both launch modes of csrc/in_gate.cu (a warp per row of up to
 1024 values, a block per longer row), batches above 1, and lengths that are
 full, partial, odd, two frames and zero. Tolerance atol = rtol = 1e-5 (f32,
 only the order of the sums differs). A row with one valid frame is
-ill-conditioned and has its own test and bound.
+ill-conditioned and has its own test and bound. The fused backward's
+dscale and dbias are sums of n = 4HW terms per (sample, channel), summed
+again over the batch, in another order than the plain version's: f32
+summation error grows with the sum of the terms' magnitudes, so their bound
+is 1e-5 of that sum (see ``_sum_bound``).
 """
 
 import pytest
 import torch
 
+from maskcyclegan_vc_tpu_torch.models import Discriminator, Generator
 from maskcyclegan_vc_tpu_torch.ops import in_gate, ps
 from maskcyclegan_vc_tpu_torch.utils.device import resolve_device
 
@@ -83,6 +88,118 @@ def test_pixel_shuffle_in_swish_kernel(device, shape, kind):
     torch.testing.assert_close(got, ps.pixel_shuffle_in_swish_plain(x, s, b, lengths), **TOL)
 
 
+@pytest.mark.parametrize("shape", SHAPES + [(2, 1024, 10, 8)])  # D downSample3 at 64 frames
+@pytest.mark.parametrize("kind", [None, "full", "mixed"])
+def test_instance_norm_swish_kernel(device, shape, kind):
+    x, (s, b) = _inputs(device, shape, shape[1], 2, 5)
+    lengths = _lengths(device, shape[0], shape[-1], kind)
+    before = in_gate.IN_SWISH_KERNEL.launches
+    got = in_gate.instance_norm_swish(x, s, b, lengths)
+    torch.cuda.synchronize()
+    assert in_gate.IN_SWISH_KERNEL.launches == before + 1
+    torch.testing.assert_close(got, in_gate.instance_norm_swish_plain(x, s, b, lengths),
+                               **TOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 3, 5), (3, 1024, 20, 16), (1, 512, 40, 224)])
+def test_pixel_shuffle_in_swish_statistics(device, shape):
+    x, (s, b) = _inputs(device, shape, shape[1] // 4, 2, 6)
+    y, mean, inv = ps.pixel_shuffle_in_swish_with_stats(x, s, b)
+    torch.cuda.synchronize()
+    want_mean, want_inv = ps.pixel_shuffle_stats_plain(x)
+    torch.testing.assert_close(y, ps.pixel_shuffle_in_swish_plain(x, s, b), **TOL)
+    torch.testing.assert_close(mean, want_mean, **TOL)
+    torch.testing.assert_close(inv, want_inv, **TOL)
+
+
+def _sum_bound(terms: torch.Tensor) -> torch.Tensor:
+    """1e-5 of the sum of |terms| per channel: terms (B, C, n)."""
+    return 1e-5 * terms.abs().sum((0, 2))
+
+
+# upSample1 and upSample2 of the full-width generator at 64 frames.
+@pytest.mark.parametrize("chw", [(256, 20, 16), (128, 40, 32)])
+@pytest.mark.parametrize("B", [1, 3, 32])
+def test_pixel_shuffle_in_swish_backward_kernel(device, chw, B):
+    C, H, W = chw
+    x, (s, b) = _inputs(device, (B, 4 * C, H, W), C, 2, 7)
+    g = torch.Generator(device=device).manual_seed(8)
+    dy = torch.randn((B, C, 2 * H, 2 * W), device=device, generator=g)
+    _, mean, inv = ps.pixel_shuffle_in_swish_with_stats(x, s, b)
+    before = ps.PS_IN_SWISH_BWD_KERNEL.launches
+    dx, dsc, dbi = ps.pixel_shuffle_in_swish_backward(x, dy, s, b, mean, inv)
+    torch.cuda.synchronize()
+    assert ps.PS_IN_SWISH_BWD_KERNEL.launches == before + 1
+    want = ps.pixel_shuffle_in_swish_backward_plain(x, dy, s, b, mean, inv)
+    torch.testing.assert_close(dx, want[0], **TOL)
+    # Against autograd through the plain forward, its own statistics.
+    xr, sr, br = (t.clone().requires_grad_() for t in (x, s, b))
+    auto = torch.autograd.grad(ps.pixel_shuffle_in_swish_plain(xr, sr, br), (xr, sr, br), dy)
+    torch.testing.assert_close(dx, auto[0], **TOL)
+    dz = torch.nn.functional.pixel_unshuffle(dy, 2).reshape(B, C, -1).abs()
+    for got, plain, autograd_ in ((dsc, want[1], auto[1]), (dbi, want[2], auto[2])):
+        # 4|dy| stands for the terms' size: |dz| <= 1.1 |dy|, and |xhat| is
+        # mostly under 4 for these inputs.
+        bound = _sum_bound(dz * 4.0)
+        assert ((got - plain).abs() <= bound).all()
+        assert ((got - autograd_).abs() <= bound).all()
+
+
+def test_backward_noncontiguous_cotangent(device):
+    """A batch slice of a larger cotangent, as out_ab[:B] hands it over."""
+    x, (s, b) = _inputs(device, (2, 32, 4, 6), 8, 2, 9)
+    big = torch.randn((4, 8, 8, 12), device=device).transpose(0, 1).contiguous().transpose(0, 1)
+    dy = big[:2]
+    _, mean, inv = ps.pixel_shuffle_in_swish_with_stats(x, s, b)
+    dx = ps.pixel_shuffle_in_swish_backward(x, dy, s, b, mean, inv)[0]
+    want = ps.pixel_shuffle_in_swish_backward_plain(x, dy.contiguous(), s, b, mean, inv)[0]
+    torch.testing.assert_close(dx, want, **TOL)
+
+
+def _rel_close(grads_got, grads_want, bound: float):
+    """Per-leaf ||got - want|| < bound * scale, the scale being the leaf's own
+    gradient norm or, for a bias, the larger of it and its layer's weight
+    gradient norm: a conv bias ahead of an InstanceNorm has zero gradient in
+    exact arithmetic, so its computed value is rounding noise at the scale
+    of the gradients that flow through that layer."""
+    for name, want in grads_want.items():
+        scale = want.norm()
+        if name.endswith(".bias"):
+            scale = max(scale, grads_want[name[:-len("bias")] + "weight"].norm())
+        rel = ((grads_got[name].cpu() - want).norm() / scale.clamp_min(1e-30)).item()
+        assert rel < bound, (name, rel)
+
+
+@pytest.mark.parametrize("which", ["G", "D"])
+def test_model_backward_matches_cpu(device, which):
+    """One loss.backward() on the card (kernels, their Functions, K5,
+    cuDNN with TF32 off) against the CPU (plain versions, the same
+    Functions) on the same weights and inputs. Bound: per-leaf relative
+    norm error 1e-4 (``_rel_close``); the two differ only in the
+    convolutions' and reductions' summation order, which chained norms
+    amplify."""
+    torch.manual_seed(0)
+    if which == "G":
+        model = Generator(16, 8, 2, generator=torch.Generator().manual_seed(1))
+        x = torch.randn(3, 16, 32)
+        mask = torch.ones_like(x)
+        mask[1, :, 4:11] = 0.0
+        args = (x, mask)
+    else:
+        model = Discriminator(8, generator=torch.Generator().manual_seed(2))
+        args = (torch.randn(3, 16, 32),)
+    gpu = type(model)(*((16, 8, 2) if which == "G" else (8,)), device=device)
+    gpu.load_state_dict(model.state_dict())
+    w = torch.randn(model(*args).shape)
+    grads = {}
+    for m, dev in ((model, "cpu"), (gpu, device)):
+        loss = (m(*(a.to(dev) for a in args)) * w.to(dev)).sum()
+        live = [(n, p) for n, p in m.named_parameters() if not n.startswith("downSample4.")]
+        grads[dev if dev == "cpu" else "cuda"] = dict(
+            zip([n for n, _ in live], torch.autograd.grad(loss, [p for _, p in live])))
+    _rel_close(grads["cuda"], grads["cpu"], 1e-4)
+
+
 def test_single_valid_frame(device):
     """One valid frame: the variance is 0, so a = scale/sqrt(eps) ~ 316*scale,
     and the folded affine x*a + (bias - mean*a) (the JAX package's form,
@@ -105,5 +222,6 @@ def test_wrappers_raise_instead_of_falling_back(device):
         in_gate.instance_norm(x, s.cpu(), b.cpu())
     with pytest.raises(ValueError):  # lengths as int64
         in_gate.instance_norm(x, s, b, torch.tensor([3], device=device))
-    with pytest.raises(NotImplementedError):  # no backward kernel yet
-        in_gate.instance_norm(x.requires_grad_(), s, b)
+    with pytest.raises(NotImplementedError):  # the masked form has no backward
+        in_gate.instance_norm(x.requires_grad_(), s, b,
+                              torch.tensor([5], dtype=torch.int32, device=device))
