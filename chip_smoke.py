@@ -7,27 +7,41 @@ Run from the root of the repository:
 
 Phases, one or more lines each; any failure raises and exits non-zero:
 
-1. env      torch and CUDA versions, the card's name and power limit.
-2. build    nvcc builds every kernel source in csrc/, all at once.
-3. convert  the conversion CLI (cli/test.py main, --device cuda) on a
-            full-width generator with seeded random weights, written as a
-            JAX-layout checkpoint, over 5 synthetic utterances; the launch
-            counts of the run, the output held against the CPU plain path,
-            and the per-utterance latency.
-4. train    the train CLI (cli/train.py main, --device cuda) at full width
-            on two synthetic speakers, 2 epochs then resumed to 3; the
-            launch counts of the run; one step on the card held against the
-            same step on the CPU (losses and Adam's first moments, the
-            gradients' image); ms/step and audio-seconds trained per second
-            at batch 1 x 64 and 32 x 128 with each step's launch counts,
-            peak memory and a profiler breakdown.
-5. kernels  each kernel against its plain PyTorch version on the card, with
-            its time, the plain version's, the library call's where one
-            exists, and its bound, at every call site recorded in one
-            431-frame conversion (unmasked and with the call's lengths) and
-            in one training step at each size (unmasked and with lengths
-            one frame short). The fused backward is also held against
-            autograd through the plain forward.
+1. env        torch and CUDA versions, the card's name and power limit.
+2. build      nvcc builds every kernel source in csrc/, all at once.
+3. preprocess the preprocess CLI (cli/preprocess.py main, --device cuda)
+              over 2 speakers x 5 synthetic wavs of 2-6 s; K8's launch
+              count (one per utterance), the output held against the same
+              CLI on the CPU, and ms per utterance.
+4. convert    the conversion CLI (cli/test.py main, --device cuda) on a
+              full-width generator with seeded random weights, written as a
+              JAX-layout checkpoint, over 5 synthetic utterances; the launch
+              counts of the run, the output held against the CPU plain path,
+              and the per-utterance latency.
+5. decode     the conversion CLI on the preprocessed speakers with a
+              full-width melgan-neurips vocoder (seeded random weights saved
+              as a state_dict) and --compute_mcd: 12 K9 calls per utterance
+              (converted, original and target, 4 stages each); the card's
+              waveforms against the CPU's and against the melgan-neurips
+              module itself; decode latency per utterance, audio-seconds
+              decoded per second, a profile; then the same CLI with
+              --griffin_lim (16 iterations, on the host).
+6. train      the train CLI (cli/train.py main, --device cuda) at full width
+              on two synthetic speakers, 2 epochs then resumed to 3, with
+              --vocoder_ckpt and one plot (its 4 panels decoded: 16 K9
+              calls); the launch counts of the run; one step on the card
+              held against the same step on the CPU (losses and Adam's first
+              moments, the gradients' image); ms/step and audio-seconds
+              trained per second at batch 1 x 64 and 32 x 128 with each
+              step's launch counts, peak memory and a profiler breakdown.
+7. kernels    each kernel against its plain PyTorch version on the card, with
+              its time, the plain version's, the library call's where one
+              exists, and its bound: K1-K5 at every call site recorded in one
+              431-frame conversion (unmasked and with the call's lengths) and
+              in one training step at each size (unmasked and with lengths
+              one frame short), the fused backward also against autograd; K8
+              on the audio of every bucket the preprocess phase ran; K9 on
+              the four stage inputs of one real 431-frame decode.
 
 The last three lines are the kernels' JSON record, the card as nvidia-smi
 names it, and {"ok": true, "device": {...}}. Working files go to
@@ -38,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -50,9 +65,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from maskcyclegan_vc_tpu_torch.cli import preprocess as preprocess_cli
 from maskcyclegan_vc_tpu_torch.cli.test import main as convert_main
 from maskcyclegan_vc_tpu_torch.cli.test import make_convert_fn
 from maskcyclegan_vc_tpu_torch.cli.train import main as train_main
+from maskcyclegan_vc_tpu_torch.data.audio_io import read_wav, write_wav
 from maskcyclegan_vc_tpu_torch.data.dataset import (
     MelBank,
     load_speaker,
@@ -67,7 +84,8 @@ from maskcyclegan_vc_tpu_torch.io.jax_params import (
     train_state_to_jax,
 )
 from maskcyclegan_vc_tpu_torch.models import Generator
-from maskcyclegan_vc_tpu_torch.ops import cuda_lib, in_gate, ps
+from maskcyclegan_vc_tpu_torch.models import melgan
+from maskcyclegan_vc_tpu_torch.ops import cuda_lib, in_gate, melgan_stack, melspec, ps
 from maskcyclegan_vc_tpu_torch.train.schedules import ScheduleConfig
 from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, create_train_state
 from maskcyclegan_vc_tpu_torch.train.step import make_train_step
@@ -99,6 +117,23 @@ TRAIN_SPEAKER_UTTERANCES = 8
 # near-zero gradients (median 6.8e-4, worst 1.6e-3). A faulty kernel or
 # backward gives O(1).
 MOMENT_BOUND = {"g": 5e-3, "d": 1e-2}
+N_PARAMS_VOCODER = 4_260_257  # melgan-neurips at its defaults, weight norm folded
+SPEAKERS = {"VCC2SF3": 220.0, "VCC2TF1": 330.0}
+# K8 against its plain version, in log10 units (1.2e-4 relative in mel
+# power): each bin's DFT sums 1024 windowed products and each mel 513
+# magnitudes in f32, in another order than cuBLAS or the CPU's BLAS. The
+# synthetic wavs carry broadband noise, so no bin sits near the 1e-5 floor,
+# where log10 would amplify rounding without bound.
+MEL_TOL = 5e-5
+# K9 against its plain version: 1e-4 of the output's largest magnitude plus
+# rtol 1e-4. A block sums up to 5C = 1280 f32 products per output in another
+# order than cuDNN, and three blocks chain.
+STAGE_TOL = 1e-4
+# Waveforms in [-1, 1]: the card's decode against the CPU's and against the
+# melgan-neurips module (weight norm applied by torch), max abs. Rounding
+# through 4 up-convs and 12 blocks gives ~1e-6; a faulty stage gives O(0.01+).
+WAV_TOL = 1e-4
+GRIFFIN_LIM_ITERS = 16  # the CLI's default is 60; 16 keeps the host-side run short
 
 
 @dataclasses.dataclass
@@ -202,7 +237,17 @@ KERNELS = {
         replaces="maskcyclegan_vc_tpu/ops/pallas/ps_kernel.py:259 (_sis_bwd_pallas, backward of subpixel_in_swish :386)",
         # per element: z 2, sigmoid 4, dz 5, two sums 3, xhat 2, dx 4
         flops_per_out=20),
+    # The audio path's kernels: measured by measure_log_mel / measure_resstack.
+    "log_mel": dict(
+        counter=melspec.LOG_MEL_KERNEL,
+        source="maskcyclegan_vc_tpu_torch/csrc/melspec.cu",
+        replaces="maskcyclegan_vc_tpu/ops/pallas/melspec_kernel.py:116 (log_mel_spectrogram_pallas, body _melspec_kernel :60)"),
+    "melgan_stack": dict(
+        counter=melgan_stack.MELGAN_STACK_KERNEL,
+        source="maskcyclegan_vc_tpu_torch/csrc/melgan_stack.cu",
+        replaces="maskcyclegan_vc_tpu/ops/pallas/melgan_stack_kernel.py:362 (melgan_resstack, body _stage_kernel :137)"),
 }
+NORM_KERNELS = ("in_glu", "in", "in_swish", "ps_in_swish", "ps_in_swish_bwd")
 
 
 def out_shape(kernel: str, shape: tuple) -> tuple:
@@ -421,8 +466,7 @@ def phase_convert(device):
         save_speaker(pre, sid, mels[sid], rs.randn(80, 1).astype(np.float32),
                      (rs.rand(80, 1) + 0.5).astype(np.float32))
 
-    for spec in KERNELS.values():
-        spec["counter"].launches = 0
+    reset_counts()
     convert_main(["--name", "smoke", "--save_dir", save, "--preprocessed_data_dir", pre,
                   "--ckpt_dir", ckpts, "--load_epoch", "1",
                   "--model_name", "generator_A2B", "--device", "cuda"])
@@ -511,7 +555,7 @@ def profile(fn, wall_s: float, what: str) -> None:
         print(f"profile: {what}: the profiler recorded no device time: not measured")
         return
     groups = {
-        "the port's kernels": r"in_kernel|ps_in_swish",
+        "the port's kernels": r"in_kernel|ps_in_swish|melspec_kernel|resblock_kernel|tail_kernel",
         "convolutions (cuDNN)": r"conv|xmma|gemm|cudnn|wgrad|dgrad|fprop|winograd|implicit",
         "Adam (foreach)": r"multi_tensor_apply|foreach",
     }
@@ -532,6 +576,336 @@ def profile(fn, wall_s: float, what: str) -> None:
         print(f"profile:   {us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# The audio path: preprocessing (K8) and decoding (K9)
+# ---------------------------------------------------------------------------
+
+def reset_counts() -> None:
+    for spec in KERNELS.values():
+        spec["counter"].launches = 0
+
+
+def counts() -> dict:
+    return {k: spec["counter"].launches for k, spec in KERNELS.items()}
+
+
+@contextlib.contextmanager
+def capturing(module, name: str):
+    """Record every call of ``module.name`` made inside the block (args and
+    kwargs, tensors cloned), passing it through unchanged."""
+    real, calls = getattr(module, name), []
+
+    def spy(*args, **kwargs):
+        def keep(v):
+            return v.clone() if isinstance(v, torch.Tensor) else v
+        calls.append(([keep(a) for a in args], {k: keep(v) for k, v in kwargs.items()}))
+        return real(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def synthetic_wav(frames: int, f0: float, rs) -> np.ndarray:
+    """frames * 256 samples (so frames mel frames): a tone plus broadband
+    noise whose level moves, so every mel bin carries energy."""
+    t = np.arange(frames * HOP) / SAMPLE_RATE
+    x = (0.3 * np.sin(2 * np.pi * f0 * t) * (0.5 + 0.5 * np.sin(6 * np.pi * t))
+         + 0.25 * rs.randn(t.size) * (0.1 + np.abs(np.sin(2 * np.pi * 1.7 * t))))
+    return x.astype(np.float32)
+
+
+def phase_preprocess(device):
+    """Audio in: the preprocess CLI on the card over 2 speakers x 5 wavs;
+    K8 once per utterance; the same CLI on the CPU as the reference."""
+    wavs, pre, pre_cpu = (os.path.join(WORK, d) for d in ("wavs", "audio_pre", "audio_pre_cpu"))
+    rs = np.random.RandomState(2)
+    for sid, f0 in SPEAKERS.items():
+        os.makedirs(os.path.join(wavs, sid), exist_ok=True)
+        for i, t in enumerate(UTTERANCE_FRAMES):
+            write_wav(os.path.join(wavs, sid, f"{i:03d}.wav"), synthetic_wav(t, f0 + 7 * i, rs),
+                      SAMPLE_RATE)
+    args = ["--data_directory", wavs, "--speaker_ids", *SPEAKERS]
+    reset_counts()
+    with capturing(preprocess_cli, "log_mel_spectrogram_fused") as calls:
+        t0 = time.perf_counter()
+        preprocess_cli.main(args + ["--preprocessed_data_directory", pre, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = counts()
+    n_utt = len(SPEAKERS) * len(UTTERANCE_FRAMES)
+    print(f"preprocess: CLI on the card {wall:.2f} s (wav reads and writes included); "
+          f"launches {launches} (expected log_mel {n_utt}: one per utterance)", flush=True)
+    if launches["log_mel"] != n_utt or sum(launches.values()) != n_utt:
+        raise AssertionError("the preprocess run did not launch K8 once per utterance")
+
+    preprocess_cli.main(args + ["--preprocessed_data_directory", pre_cpu, "--device", "cpu"])
+    worst, worst_norm = 0.0, 0.0
+    for sid in SPEAKERS:
+        mels, mean, std = load_speaker(pre, sid)
+        ref, rmean, rstd = load_speaker(pre_cpu, sid)
+        if [m.shape for m in mels] != [(80, t) for t in UTTERANCE_FRAMES]:
+            raise AssertionError(f"{sid}: shapes {[m.shape for m in mels]}")
+        for m, r in zip(mels, ref):
+            if not np.isfinite(m).all():
+                raise AssertionError(f"{sid}: non-finite mels")
+            worst = max(worst, float(np.abs((m * std + mean) - (r * rstd + rmean)).max()))
+            worst_norm = max(worst_norm, float(np.abs(m - r).max()))
+    print(f"preprocess: card vs CPU CLI: log-mel max abs error {worst:.3g} log10 units "
+          f"(bound {MEL_TOL:g}); normalized mels {worst_norm:.3g}", flush=True)
+    if worst > MEL_TOL:
+        raise AssertionError("the card's preprocessing disagrees with the CPU's")
+
+    mel_fn = preprocess_cli.make_mel_fn(device)
+    audio = [synthetic_wav(t, 220.0, np.random.RandomState(t)) for t in UTTERANCE_FRAMES]
+    for a in audio:  # warm-up, every bucket
+        mel_fn(a)
+    lat = []
+    for a in audio:
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            mel_fn(a)  # returns host numpy: the device work is done
+            runs.append(time.perf_counter() - t0)
+        lat.append(float(np.median(runs)))
+    for t, l in zip(UTTERANCE_FRAMES, lat):
+        print(f"preprocess: {t} frames: {1e3 * l:.3f} ms per utterance (median of 5, host "
+              f"clock, host pad, H2D and D2H included)", flush=True)
+    print(f"preprocess: {1e3 * float(np.mean(lat)):.3f} ms per utterance on average over "
+          f"the 5 lengths", flush=True)
+    return pre, launches["log_mel"], [c[0][0] for c in calls]
+
+
+class NeuripsResnetBlock(torch.nn.Module):
+    """melgan-neurips's ResnetBlock, its checkpoint's names."""
+
+    def __init__(self, dim: int, dilation: int):
+        super().__init__()
+        nn, weight_norm = torch.nn, torch.nn.utils.weight_norm
+        self.block = nn.Sequential(nn.LeakyReLU(0.2), nn.ReflectionPad1d(dilation),
+                                   weight_norm(nn.Conv1d(dim, dim, 3, dilation=dilation)),
+                                   nn.LeakyReLU(0.2), weight_norm(nn.Conv1d(dim, dim, 1)))
+        self.shortcut = weight_norm(nn.Conv1d(dim, dim, 1))
+
+    def forward(self, x):
+        return self.shortcut(x) + self.block(x)
+
+
+def neurips_vocoder(seed: int, gain: float = 1.5):
+    """The melgan-neurips generator module (one nn.Sequential of weight-normed
+    convs, the graph its torch.hub checkpoint holds) with random weights:
+    torch's default init with every weight_g scaled by ``gain``, so a decode
+    of normalized mels neither fades to a constant nor saturates the tanh."""
+    nn, weight_norm = torch.nn, torch.nn.utils.weight_norm
+    torch.manual_seed(seed)
+    mult, ngf = 16, 32
+    layers = [nn.ReflectionPad1d(3), weight_norm(nn.Conv1d(80, mult * ngf, 7))]
+    for r in melgan.RATIOS:
+        layers += [nn.LeakyReLU(0.2), weight_norm(nn.ConvTranspose1d(
+            mult * ngf, mult * ngf // 2, 2 * r, stride=r, padding=r // 2 + r % 2,
+            output_padding=r % 2))]
+        layers += [NeuripsResnetBlock(mult * ngf // 2, 3 ** j) for j in range(3)]
+        mult //= 2
+    layers += [nn.LeakyReLU(0.2), nn.ReflectionPad1d(3), weight_norm(nn.Conv1d(ngf, 1, 7)),
+               nn.Tanh()]
+    model = nn.Sequential(*layers)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("weight_g"):
+                p.mul_(gain)
+    return model.eval()
+
+
+def _run_cli(fn, argv) -> str:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn(argv)
+    return out.getvalue()
+
+
+def phase_decode(device, pre: str, ckpts: str):
+    """Audio out: conversion with --vocoder_ckpt and --compute_mcd on the
+    preprocessed speakers, then with --griffin_lim."""
+    ref = neurips_vocoder(0)
+    voc_path = os.path.join(WORK, "vocoder.pt")
+    torch.save({f"model.{k}": v for k, v in ref.state_dict().items()}, voc_path)
+    save = os.path.join(WORK, "decode_results")
+    common = ["--save_dir", save, "--preprocessed_data_dir", pre, "--ckpt_dir", ckpts,
+              "--load_epoch", "1", "--model_name", "generator_A2B", "--device", "cuda",
+              "--compute_mcd"]
+    n_utt = len(UTTERANCE_FRAMES)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    text = _run_cli(convert_main, ["--name", "vocoder", "--vocoder_ckpt", voc_path] + common)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    want = {k: PER_FORWARD.get(k, 0) * n_utt for k in KERNELS}
+    want["melgan_stack"] = 12 * n_utt
+    lines = [ln for ln in text.splitlines() if ln.startswith(("wrote", "MCD", "F0"))]
+    for ln in lines:
+        print(f"decode: CLI: {ln}", flush=True)
+    print(f"decode: CLI --vocoder_ckpt --compute_mcd on the card {wall:.2f} s; launches "
+          f"{launches} (expected {want}: melgan_stack 12 per utterance)", flush=True)
+    if launches != want:
+        raise AssertionError("the decode run did not launch K9 12 times per utterance")
+    if len(lines) != 4:
+        raise AssertionError(f"the CLI printed {lines}")
+    out_dir = os.path.join(save, "vocoder", "converted_audio_1")
+    for i, t in enumerate(UTTERANCE_FRAMES):
+        for kind in ("converted", "original"):
+            wav, sr = read_wav(os.path.join(out_dir, f"{i}-{kind}_VCC2SF3_to_VCC2TF1.wav"))
+            if wav.shape != (t * HOP,) or sr != SAMPLE_RATE or not np.isfinite(wav).all():
+                raise AssertionError(f"{i}-{kind}: {wav.shape} at {sr} Hz")
+
+    # The vocoder on the card against the CPU plain path and against the
+    # melgan-neurips module itself, on the target's 431-frame utterance.
+    vocoder = melgan.load_vocoder(voc_path, device)
+    n = sum(p.numel() for p in vocoder.parameters())
+    mels, mean, std = load_speaker(pre, "VCC2TF1")
+    i431 = UTTERANCE_FRAMES.index(431)
+    mel = mels[i431]
+    got = melgan.decode_mel(vocoder, mel[None], mean, std)[0].cpu().numpy()
+    cpu = melgan.decode_mel(melgan.load_vocoder(voc_path, "cpu"), mel[None], mean, std)[0].numpy()
+    with torch.no_grad():
+        module = ref.to(device)(torch.from_numpy(mel * std + mean)[None].to(device))
+    module = module[0, 0].cpu().numpy()
+    e_cpu, e_mod = float(np.abs(got - cpu).max()), float(np.abs(got - module).max())
+    print(f"decode: vocoder {n:,} parameters (expected {N_PARAMS_VOCODER:,}); 431 frames -> "
+          f"{got.size} samples, std {got.std():.4f}, peak {np.abs(got).max():.4f}; card vs "
+          f"CPU plain path max abs error {e_cpu:.3g}, card vs the melgan-neurips module "
+          f"{e_mod:.3g} (bound {WAV_TOL:g})", flush=True)
+    if n != N_PARAMS_VOCODER or got.shape != (431 * HOP,) or max(e_cpu, e_mod) > WAV_TOL:
+        raise AssertionError("the card's decode disagrees with its references")
+
+    src = load_speaker(pre, "VCC2SF3")
+    for m in src[0]:  # warm-up, every length
+        melgan.decode_mel(vocoder, m[None], src[1], src[2]).cpu()
+    lat = []
+    for m in src[0]:
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            melgan.decode_mel(vocoder, m[None], src[1], src[2]).cpu()  # D2H waits for the card
+            runs.append(time.perf_counter() - t0)
+        lat.append(float(np.median(runs)))
+    audio_s = [t * HOP / SAMPLE_RATE for t in UTTERANCE_FRAMES]
+    for t, a, l in zip(UTTERANCE_FRAMES, audio_s, lat):
+        print(f"decode: {t} frames ({a:.3f} s audio): {1e3 * l:.3f} ms per utterance "
+              f"(median of 5, host clock, H2D and D2H included)", flush=True)
+    print(f"decode: {sum(audio_s) / sum(lat):.1f} audio-s decoded per s over the 5 "
+          f"utterances", flush=True)
+    profile(lambda: melgan.decode_mel(vocoder, src[0][i431][None], src[1], src[2]).cpu(),
+            lat[i431], f"{UTTERANCE_FRAMES[i431]}-frame MelGAN decode")
+    with capturing(melgan, "melgan_resstack") as stage_calls:
+        melgan.decode_mel(vocoder, src[0][i431][None], src[1], src[2])
+    if len(stage_calls) != 4:
+        raise AssertionError(f"one decode made {len(stage_calls)} K9 calls")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    text = _run_cli(convert_main, ["--name", "griffin_lim", "--griffin_lim",
+                                   "--griffin_lim_iters", str(GRIFFIN_LIM_ITERS)] + common)
+    wall = time.perf_counter() - t0
+    gl_launches = counts()
+    n_wavs = len([f for f in os.listdir(os.path.join(save, "griffin_lim", "converted_audio_1"))
+                  if f.endswith(".wav")])
+    for ln in text.splitlines():
+        if ln.startswith(("MCD", "F0")):
+            print(f"decode: Griffin-Lim CLI: {ln}", flush=True)
+    print(f"decode: CLI --griffin_lim --griffin_lim_iters {GRIFFIN_LIM_ITERS} "
+          f"--compute_mcd {wall:.2f} s (Griffin-Lim on the host); {n_wavs} wavs; launches "
+          f"{gl_launches}", flush=True)
+    want_gl = dict(want, melgan_stack=0)
+    if gl_launches != want_gl or n_wavs != 2 * n_utt:
+        raise AssertionError("the Griffin-Lim run went wrong")
+    return voc_path, launches["melgan_stack"], stage_calls
+
+
+def measure_log_mel(audio_inputs, device):
+    """K8 on the padded audio of each bucket the preprocess run saw: error
+    against the plain version, device times and the bound."""
+    per_bucket = {}
+    for a in audio_inputs:
+        per_bucket.setdefault(tuple(a.shape), [a, 0])[1] += 1
+    r = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
+    for shape, (a, n) in sorted(per_bucket.items()):
+        a = a.to(device)
+        got = melspec.log_mel_spectrogram_fused(a, pad=False)
+        want = melspec.log_mel_spectrogram_plain(a, pad=False)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if err > MEL_TOL:
+            raise AssertionError(f"K8 at {shape}: max abs err {err:.3g} > {MEL_TOL}")
+        B, L = shape
+        T = got.shape[-1]
+        flops = B * T * (2 * 2 * 1024 * 513 + 2 * 513 * 80)
+        nbytes = 4 * (B * L + 2 * 1024 * 513 + 513 * 80 + B * 80 * T)
+        t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        b_ms = 1e3 * max(t_ops, t_bytes)
+        ms = device_ms(lambda: melspec.log_mel_spectrogram_fused(a, pad=False))
+        plain_ms = device_ms(lambda: melspec.log_mel_spectrogram_plain(a, pad=False))
+        print(f"kernels: preprocess log_mel in {str(shape):16s} ({T} frames) x{n} max_abs_err "
+              f"{err:.3g} (tol {MEL_TOL:g} log10 units) ms {ms:.5f} plain_ms {plain_ms:.5f} "
+              f"library_ms null bound_us {1e3 * b_ms:.3f} "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}; {flops / 1e9:.3f} GFLOP, "
+              f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved)", flush=True)
+        r["ms"] += n * ms
+        r["plain_ms"] += n * plain_ms
+        r["bound_ms"] += n * b_ms
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"kernels: preprocess log_mel sum over the run's {len(audio_inputs)} calls: ms "
+          f"{r['ms']:.5f} plain_ms {r['plain_ms']:.5f} bound_ms {r['bound_ms']:.5f}", flush=True)
+    return r
+
+
+def measure_resstack(stage_calls, device):
+    """K9 on the four stage inputs of one real 431-frame decode."""
+    r = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
+    for args, kwargs in stage_calls:
+        x, blocks = args[0], args[1]
+        emit, tail = kwargs.get("emit_lrelu", False), kwargs.get("tail")
+        with torch.inference_mode():
+            got = melgan_stack.melgan_resstack(x, blocks, emit, tail)
+            want = melgan_stack.melgan_resstack_plain(x, blocks, emit, tail)
+            torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, atol=STAGE_TOL * scale, rtol=STAGE_TOL):
+            raise AssertionError(f"K9 at {tuple(x.shape)}: max abs err {err:.3g} "
+                                 f"(output scale {scale:.3g})")
+        B, C, W = x.shape
+        flops = B * W * (30 * C * C + (14 * C if tail is not None else 0))
+        n_w = 3 * (5 * C * C + 2 * C) + (7 * C + 1 if tail is not None else 0)
+        nbytes = 4 * (x.numel() + got.numel() + n_w)
+        t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        b_ms = 1e3 * max(t_ops, t_bytes)
+        reps = 20 if x.numel() < (1 << 22) else 5
+        with torch.inference_mode():
+            ms = device_ms(lambda: melgan_stack.melgan_resstack(x, blocks, emit, tail), reps)
+            plain_ms = device_ms(lambda: melgan_stack.melgan_resstack_plain(x, blocks, emit,
+                                                                            tail), reps)
+        what = "tail" if tail is not None else ("emit_lrelu" if emit else "plain")
+        print(f"kernels: decode melgan_stack in {str(tuple(x.shape)):18s} {what:10s} "
+              f"max_abs_err {err:.3g} (output scale {scale:.3g}; tol {STAGE_TOL:g} of the "
+              f"scale + rtol {STAGE_TOL:g}) ms {ms:.5f} plain_ms {plain_ms:.5f} library_ms null "
+              f"bound_us {1e3 * b_ms:.3f} ({'operations' if t_ops >= t_bytes else 'bytes'}; "
+              f"{flops / 1e9:.3f} GFLOP, {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved)",
+              flush=True)
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["bound_ms"] += b_ms
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"kernels: decode melgan_stack sum over one 431-frame decode (4 calls): ms "
+          f"{r['ms']:.5f} plain_ms {r['plain_ms']:.5f} bound_ms {r['bound_ms']:.5f}", flush=True)
+    return r
+
+
 def _log_losses(path: str):
     rows = [line for line in open(path) if line.startswith("[epoch")]
     vals = [float(v) for line in rows for v in re.findall(r": (\S+)", line)
@@ -539,7 +913,7 @@ def _log_losses(path: str):
     return rows, vals
 
 
-def phase_train(device):
+def phase_train(device, vocoder_ckpt: str):
     pre, save = os.path.join(WORK, "train_pre"), os.path.join(WORK, "train_results")
     rs = np.random.RandomState(1)
     for sid in ("VCC2SF3", "VCC2TF1"):
@@ -549,25 +923,28 @@ def phase_train(device):
                      (rs.rand(80, 1) + 0.5).astype(np.float32))
     args = ["--name", "smoke", "--save_dir", save, "--preprocessed_data_dir", pre,
             "--device", "cuda", "--batch_size", "1", "--num_frames", "64",
-            "--epochs_per_save", "1", "--epochs_per_plot", "2", "--steps_per_print", "1"]
+            "--epochs_per_save", "1", "--epochs_per_plot", "2", "--steps_per_print", "1",
+            "--vocoder_ckpt", vocoder_ckpt]
 
     # The slice's main path: train through the CLI, then resume. Counts
     # from 0 just before, read just after.
-    for spec in KERNELS.values():
-        spec["counter"].launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     train_main(args + ["--num_epochs", "2"])
     t1 = time.perf_counter()
     train_main(args + ["--num_epochs", "3", "--continue_train"])
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {k: spec["counter"].launches for k, spec in KERNELS.items()}
+    launches = counts()
     steps = 3 * TRAIN_SPEAKER_UTTERANCES
-    # Plots at epoch 2: two conversions, each one generator forward.
+    # The plot at epoch 2: two conversions, each one generator forward, and
+    # its four panels decoded by the vocoder, 4 K9 calls each.
     want = {k: steps * n + 2 * PER_FORWARD.get(k, 0) for k, n in PER_STEP[1].items()}
+    want.update(log_mel=0, melgan_stack=16)
     print(f"train: CLI, 2 epochs {t1 - t0:.1f} s, resumed to epoch 3 {t2 - t1:.1f} s "
           f"(state creation, checkpoint writes and reads included); launches {launches} "
-          f"(expected {want}: {steps} steps and 2 plot conversions)", flush=True)
+          f"(expected {want}: {steps} steps, 2 plot conversions, 4 panels decoded)",
+          flush=True)
     if launches != want:
         raise AssertionError("the training run did not launch every kernel as expected")
 
@@ -689,12 +1066,11 @@ def phase_step_timing(pre: str, device, batch: int, frames: int):
         times.append(time.perf_counter() - t0)
     ms = 1e3 * float(np.median(times[5:]))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    for spec in KERNELS.values():
-        spec["counter"].launches = 0
+    reset_counts()
     with recording_sites() as sites:
         state, m = step(state, batches[25])
         torch.cuda.synchronize()
-    launches = {k: spec["counter"].launches for k, spec in KERNELS.items()}
+    launches = {k: n for k, n in counts().items() if n}
     audio_s = batch * frames * HOP / SAMPLE_RATE
     print(f"train: step at batch {batch} x {frames} frames (pair_forwards "
           f"{cfg.pair_forwards_resolved()}): {ms:.3f} ms/step (median of 20 after 5 "
@@ -727,7 +1103,7 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
 
     t0 = time.perf_counter()
-    logs = cuda_lib.build(["in_gate", "ps_in_swish"])
+    logs = cuda_lib.build(["in_gate", "ps_in_swish", "melspec", "melgan_stack"])
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'nothing (cached)'}",
           flush=True)
     for name, log in logs.items():
@@ -735,8 +1111,11 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}")
 
+    audio_pre, log_mel_launches, mel_inputs = phase_preprocess(device)
     convert_sites = phase_convert(device)
-    launches, pre = phase_train(device)
+    vocoder_ckpt, stack_launches, stage_calls = phase_decode(
+        device, audio_pre, os.path.join(WORK, "ckpts"))
+    launches, pre = phase_train(device, vocoder_ckpt)
     phase_cross_step(pre, device)
     per_step1, sites1 = phase_step_timing(pre, device, 1, 64)
     per_step32, sites32 = phase_step_timing(pre, device, 32, 128)
@@ -745,11 +1124,13 @@ def main() -> int:
     measure_sites(convert_sites, device, "convert/forward")
     step1 = measure_sites(sites1, device, "train 1x64/step")
     step32 = measure_sites(sites32, device, "train 32x128/step")
+    audio = {"log_mel": (measure_log_mel(mel_inputs, device), log_mel_launches),
+             "melgan_stack": (measure_resstack(stage_calls, device), stack_launches)}
     print(f"kernels: phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []
-    for k, spec in KERNELS.items():
-        r = step1[k]
+    for k in NORM_KERNELS:
+        spec, r = KERNELS[k], step1[k]
         kernels.append({
             "name": k, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"], "launches": launches[k],
@@ -758,6 +1139,15 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "ms_32x128": step32[k]["ms"], "bound_ms_32x128": step32[k]["bound_ms"]})
+    # K8: ms, plain_ms and bound_ms summed over the preprocess run's calls;
+    # K9: over the four calls of one 431-frame decode. launches: the
+    # preprocess run's and the decode run's counts.
+    for k, (r, n) in audio.items():
+        kernels.append({
+            "name": k, "route": "cuda", "source": KERNELS[k]["source"],
+            "replaces": KERNELS[k]["replaces"], "launches": n,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,10 @@ package resumes from or converts with.
 Not defined yet, so argparse rejects them: --dtype and --precision (f32
 only), --fused_norms (the port's kernels always run on the card),
 --scan_epochs (one device program per epoch; a CUDA graph is the later
-counterpart), --distributed and --grad_allreduce_dtype (data parallelism),
---vocoder_ckpt and --plot_audio (audio logging waits for waveform decoding).
+counterpart), --distributed and --grad_allreduce_dtype (data parallelism).
+At plot cadence the four spectrogram panels are also decoded to audio
+(``--plot_audio auto``): by the MelGAN vocoder of ``--vocoder_ckpt``, else
+by Griffin-Lim.
 """
 
 from __future__ import annotations
@@ -75,6 +77,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="metrics = raise at epoch end if any step's logged loss "
                         "is not finite; params = also check the whole state "
                         "before every checkpoint write")
+    p.add_argument("--vocoder_ckpt", type=str, default=d.vocoder_ckpt,
+                   help="melgan-neurips checkpoint for the audio at plot cadence")
+    p.add_argument("--plot_audio", choices=["auto", "off"], default=d.plot_audio,
+                   help="audio at plot cadence: auto = MelGAN with --vocoder_ckpt, "
+                        "else Griffin-Lim; off = none")
     p.add_argument("--device", type=str, default=d.device, choices=["cuda", "cpu"])
     return p
 

@@ -3,7 +3,8 @@
 Counterpart of ``maskcyclegan_vc_tpu/data/dataset.py``.
 ``load_speaker`` and ``save_speaker`` keep the reference's on-disk layout:
 ``<dir>/<id>/<id>_normalized.pickle`` holds the list of normalized (M, T)
-mels and ``<id>_norm_stat.npz`` the speaker's mean and std, (M, 1) each.
+mels and ``<id>_norm_stat.npz`` the speaker's mean and std, (M, 1) each, which
+``compute_norm_stats`` takes and ``normalize`` applies at preprocessing.
 
 ``MelBank`` holds a speaker's corpus on the device as one padded array and
 ``sample_batch`` draws a training batch there from a ``torch.Generator``,
@@ -24,10 +25,23 @@ from __future__ import annotations
 import dataclasses
 import os
 import pickle
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+
+def compute_norm_stats(mels: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-speaker mean and std over the concatenated frames, the std
+    plus 1e-9 (the reference's preprocessing). (M, 1) float32 each."""
+    cat = np.concatenate(mels, axis=1)
+    mean = cat.mean(axis=1, keepdims=True)
+    std = cat.std(axis=1, keepdims=True) + 1e-9
+    return mean.astype(np.float32), std.astype(np.float32)
+
+
+def normalize(mels: List[np.ndarray], mean, std) -> List[np.ndarray]:
+    return [((m - mean) / std).astype(np.float32) for m in mels]
 
 
 def save_speaker(out_dir: str, speaker_id: str, normalized: List[np.ndarray],

@@ -4,7 +4,8 @@ The JAX package keeps a flax tree, ``{"params": {...}}``, with HWIO conv
 kernels; the port keeps the reference's state_dict, with OIHW (OIK) conv
 weights and the reference's module names. ``generator_params_*`` and
 ``discriminator_params_*`` map one onto the other (the same mapping as
-``maskcyclegan_vc_tpu/io/torch_import.py``), on numpy leaves.
+``maskcyclegan_vc_tpu/io/torch_import.py``), on numpy leaves, and
+``melgan_params_*`` do the same for the MelGAN vocoder.
 ``train_state_to_jax`` and ``train_state_from_jax`` carry a whole training
 state (params, both Adams' moments and counts, the step) as the flat npz
 keys the JAX trainer's checkpoint holds. ``load_pth_tar`` reads a reference
@@ -141,6 +142,49 @@ def discriminator_params_to_jax(sd: Mapping) -> Dict:
     """The port's (or the reference's) discriminator state_dict -> JAX
     params, with the dead leaves where the state_dict holds them."""
     return _to_jax(sd, _d_pairs(f"{DEAD_PREFIX}0.weight" in sd))
+
+
+def _melgan_pairs(n_stages: int, n_residual_layers: int = 3):
+    """(state_dict module, JAX leaf prefix, kind) for the MelGAN vocoder.
+    The JAX tree keeps the transposed convs in torch's (I, O, K) layout."""
+    out = [("conv_in", "conv_in", "1d")]
+    for i in range(n_stages):
+        out.append((f"ups.{i}", f"up{i}", "transpose"))
+        for j in range(n_residual_layers):
+            out += [(f"stages.{i}.{j}.{c}", f"res{i}_{j}_{c}", "1d")
+                    for c in ("conv1", "conv2", "shortcut")]
+    out.append(("conv_out", "conv_out", "1d"))
+    return out
+
+
+def melgan_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``MelGANGenerator`` params ``{"params": {conv_in_kernel (K, I, O),
+    up{i}_kernel (I, O, K), res{i}_{j}_conv1_kernel, ...}}`` -> the port's
+    state_dict."""
+    p = tree["params"]
+    n_stages = len({k.split("_")[0] for k in p if re.match(r"up\d+_kernel$", k)})
+    sd: Dict[str, torch.Tensor] = {}
+    for name, prefix, kind in _melgan_pairs(n_stages):
+        w = _np(p[f"{prefix}_kernel"])
+        if kind == "1d":
+            w = w.transpose(_TO_TORCH["1d"])
+        sd[f"{name}.weight"] = torch.from_numpy(np.array(w, np.float32, order="C"))
+        sd[f"{name}.bias"] = torch.from_numpy(np.array(_np(p[f"{prefix}_bias"]),
+                                                       np.float32, order="C"))
+    return sd
+
+
+def melgan_params_to_jax(sd: Mapping) -> Dict:
+    """The port's MelGAN state_dict -> JAX ``{"params": {...}}``, numpy leaves."""
+    n_stages = len({k.split(".")[1] for k in sd if k.startswith("ups.")})
+    p: Dict[str, np.ndarray] = {}
+    for name, prefix, kind in _melgan_pairs(n_stages):
+        w = _np(sd[f"{name}.weight"])
+        if kind == "1d":
+            w = w.transpose(_TO_JAX["1d"])
+        p[f"{prefix}_kernel"] = np.ascontiguousarray(w)
+        p[f"{prefix}_bias"] = _np(sd[f"{name}.bias"])
+    return {"params": p}
 
 
 # ---------------------------------------------------------------------------

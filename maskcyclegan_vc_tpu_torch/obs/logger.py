@@ -1,14 +1,15 @@
 """Training logs: windowed loss averages, the .log file, the args snapshot,
-spectrogram images.
+spectrogram images and audio clips.
 
 Counterpart of ``maskcyclegan_vc_tpu/obs/logger.py``: loss averages over a
 window of ``steps_per_print`` steps, printed and appended to
 ``<save_dir>/<name>/<name>.log``; ``train_args.json`` beside it; TensorBoard
-scalars, hyperparameters and spectrogram images where ``tensorboardX`` (and,
-for the images, matplotlib) is installed, and nothing of them where it is
-not. Metric values may be device tensors: they are buffered as they are and
-read in one transfer at the print boundary, so the training loop does not
-wait for the device on every step. Audio clips are not logged yet.
+scalars, hyperparameters, spectrogram images and audio clips where
+``tensorboardX`` (and, for the images, matplotlib; for the clips,
+soundfile, or else a wav beside the log) is installed, and nothing of them
+where it is not. Metric values may be device tensors: they are buffered as
+they are and read in one transfer at the print boundary, so the training
+loop does not wait for the device on every step.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from maskcyclegan_vc_tpu_torch.data.audio_io import write_wav
 
 
 class AverageMeter:
@@ -157,6 +160,18 @@ class TrainLogger:
         grid = np.concatenate([np.concatenate(padded[r:r + 2], axis=1)
                                for r in range(0, len(padded), 2)], axis=0)
         self.tb.add_image("-".join(mels), grid, step, dataformats="HWC")
+
+    def log_audio(self, tag: str, audio: np.ndarray, step: int,
+                  sample_rate: int = 22050) -> None:
+        """A clip to TensorBoard; where tensorboardX cannot encode it (it
+        needs ``soundfile``), a ``<tag>_<step>.wav`` beside the log."""
+        if self.tb is None:
+            return
+        try:
+            self.tb.add_audio(tag, np.asarray(audio).reshape(-1, 1), step, sample_rate)
+        except ImportError:
+            write_wav(os.path.join(self.run_dir, f"{tag}_{step}.wav"),
+                      np.asarray(audio), sample_rate)
 
     def close(self) -> None:
         """Flush a partial window, so no step's metrics go unlogged."""

@@ -17,8 +17,10 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+from typing import Optional
 
 from maskcyclegan_vc_tpu_torch.cli.test import make_convert_fn
+from maskcyclegan_vc_tpu_torch.data.griffin_lim import decode_mel_griffin_lim
 from maskcyclegan_vc_tpu_torch.data.dataset import (
     MelBank,
     load_speaker,
@@ -34,6 +36,7 @@ from maskcyclegan_vc_tpu_torch.io.checkpoint import (
     save_checkpoint,
 )
 from maskcyclegan_vc_tpu_torch.io.jax_params import train_state_to_jax
+from maskcyclegan_vc_tpu_torch.models.melgan import decode_mel, load_vocoder
 from maskcyclegan_vc_tpu_torch.obs.logger import TrainLogger, to_host
 from maskcyclegan_vc_tpu_torch.train.schedules import ScheduleConfig
 from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, create_train_state
@@ -80,6 +83,11 @@ class TrainerArgs:
     # finite; "params": also check the whole state before each checkpoint
     # write, so a diverged run never overwrites its last good one.
     finite_check: str = "metrics"
+    # melgan-neurips checkpoint for the audio at plot cadence
+    vocoder_ckpt: Optional[str] = None
+    # "auto": the four panels decoded to audio at plot cadence, by MelGAN
+    # with vocoder_ckpt, else by Griffin-Lim (32 iterations); "off": none.
+    plot_audio: str = "auto"
     device: str = "cuda"
 
 
@@ -114,6 +122,7 @@ class Trainer:
                 load_train_state(checkpoint_path(self.ckpt_dir, last), self.state)
                 self.start_epoch = last + 1
 
+        self.vocoder = load_vocoder(a.vocoder_ckpt, self.device) if a.vocoder_ckpt else None
         self.logger = TrainLogger(a.save_dir, a.name, steps_per_print=a.steps_per_print,
                                   config=dataclasses.asdict(a))
         self._saver = AsyncSaver()
@@ -191,7 +200,10 @@ class Trainer:
 
     def _plot(self, epoch: int) -> None:
         """Spectrograms of one utterance per side and its conversion, through
-        the bucketed conversion path; a different utterance each time."""
+        the bucketed conversion path, a different utterance each time; and,
+        unless ``plot_audio`` is off, the four decoded to audio, each in its
+        speaker's statistics: by the vocoder where one is loaded, else by
+        Griffin-Lim at 32 iterations."""
         idx = epoch // max(1, self.args.epochs_per_plot) - 1
         real_A = self.mels_A[idx % len(self.mels_A)]
         real_B = self.mels_B[idx % len(self.mels_B)]
@@ -202,3 +214,14 @@ class Trainer:
         self.logger.log_spectrogram_grid(panels, epoch)
         for tag, mel in panels.items():
             self.logger.log_spectrogram(tag, mel, epoch)
+        if self.args.plot_audio == "off":
+            return
+        stats = {"A": (self.mean_A, self.std_A), "B": (self.mean_B, self.std_B)}
+        for tag, mel in panels.items():
+            mean, std = stats[tag.split("_")[1]]
+            if self.vocoder is not None:
+                wav = decode_mel(self.vocoder, mel[None], mean, std)[0].cpu().numpy()
+            else:
+                wav = decode_mel_griffin_lim(mel, mean, std, n_iter=32)
+            self.logger.log_audio(tag.replace("_spec", "_audio"), wav, epoch,
+                                  self.args.sample_rate)

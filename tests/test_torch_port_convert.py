@@ -94,14 +94,6 @@ def test_cuda_without_a_gpu_raises_instead_of_running_on_cpu(corpus, monkeypatch
     assert not glob.glob(str(root / "results" / "port_nogpu" / "converted_audio_3" / "*"))
 
 
-@pytest.mark.parametrize("flag", [["--vocoder_ckpt", "v.pt"], ["--griffin_lim"],
-                                  ["--compute_mcd"]])
-def test_unported_flags_are_rejected(corpus, flag):
-    root, _ = corpus
-    with pytest.raises(SystemExit):
-        main(_args(root, "port_flags", "generator_A2B") + ["--device", "cpu"] + flag)
-
-
 def test_checkpoint_layouts_load(corpus, tmp_path):
     """The JAX trainer's dataclass layout (``.g_params/...``), the port's own
     writer, and a reference ``.pth.tar`` all give the same state_dict."""
@@ -153,7 +145,11 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "maskcyclegan_vc_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 10
+    names = {p.relative_to(REPO).as_posix() for p in files}
+    for sub in ("cli/preprocess.py", "cli/test.py", "data/melspec.py", "data/audio_io.py",
+                "data/griffin_lim.py", "eval/f0.py", "eval/mcep.py", "eval/metrics.py",
+                "models/melgan.py", "ops/melspec.py", "ops/melgan_stack.py"):
+        assert f"maskcyclegan_vc_tpu_torch/{sub}" in names, sub
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -14,7 +14,8 @@ ill-conditioned and has its own test and bound. The fused backward's
 dscale and dbias are sums of n = 4HW terms per (sample, channel), summed
 again over the batch, in another order than the plain version's: f32
 summation error grows with the sum of the terms' magnitudes, so their bound
-is 1e-5 of that sum (see ``_sum_bound``).
+is 1e-5 of that sum (see ``_sum_bound``). The mel frontend (K8) and the
+MelGAN stage (K9) have their tolerances stated beside their tests.
 """
 
 import pytest
@@ -225,3 +226,106 @@ def test_wrappers_raise_instead_of_falling_back(device):
     with pytest.raises(NotImplementedError):  # the masked form has no backward
         in_gate.instance_norm(x.requires_grad_(), s, b,
                               torch.tensor([5], dtype=torch.int32, device=device))
+
+
+# ---------- K8, the mel frontend ----------
+#
+# Tolerance 5e-5 in log10 units (1.2e-4 relative in mel power): each bin's
+# DFT sums 1024 windowed products and each mel 513 magnitudes in f32, in
+# another order than cuBLAS in the plain version. Audio is broadband noise,
+# so no bin sits near the 1e-5 floor, where log10 would amplify rounding.
+MEL_TOL = dict(atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("B, L, pad", [(1, 576 * 256 + 768, False),  # the 576-frame bucket
+                                       (1, 173 * 256, True),  # 173 frames: a ragged tile
+                                       (2, 260 * 256 + 100, True),
+                                       (3, 1024, False)])  # one frame
+def test_log_mel_kernel(device, B, L, pad):
+    from maskcyclegan_vc_tpu_torch.ops import melspec
+
+    g = torch.Generator(device=device).manual_seed(L)
+    audio = torch.randn((B, L), device=device, generator=g) * 0.3
+    before = melspec.LOG_MEL_KERNEL.launches
+    got = melspec.log_mel_spectrogram_fused(audio, pad=pad)
+    torch.cuda.synchronize()
+    assert melspec.LOG_MEL_KERNEL.launches == before + 1
+    want = melspec.log_mel_spectrogram_plain(audio, pad=pad)
+    assert got.shape == want.shape and got.shape[:2] == (B, 80)
+    torch.testing.assert_close(got, want, **MEL_TOL)
+
+
+# ---------- K9, the MelGAN stage ----------
+#
+# Weights at unit gain (std 1/sqrt(fan_in)), so activations stay O(1) over
+# the three blocks. Tolerance 1e-4 of the output's largest magnitude plus
+# rtol 1e-4: a block sums up to 5C = 1280 f32 products per output in
+# another order than cuDNN, and three blocks chain.
+
+
+def _stage(device, B, C, W, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, device=device, generator=g) * scale
+
+    blocks = [{"conv1.weight": rnd(C, C, 3, scale=(3 * C) ** -0.5), "conv1.bias": rnd(C, scale=0.1),
+               "conv2.weight": rnd(C, C, 1, scale=C ** -0.5), "conv2.bias": rnd(C, scale=0.1),
+               "shortcut.weight": rnd(C, C, 1, scale=C ** -0.5),
+               "shortcut.bias": rnd(C, scale=0.1)} for _ in range(3)]
+    tail = (rnd(1, C, 7, scale=(7 * C) ** -0.5), rnd(1, scale=0.1))
+    return rnd(B, C, W), blocks, tail
+
+
+# The four stages of a 431-frame decode, then ragged, narrow and batched cases.
+@pytest.mark.parametrize("B, C, W", [(1, 256, 3448), (1, 128, 27584), (1, 64, 55168),
+                                     (1, 32, 110336), (2, 256, 100), (1, 64, 10),
+                                     (3, 32, 4099), (1, 4, 1025)])
+@pytest.mark.parametrize("mode", ["plain", "emit_lrelu", "tail"])
+def test_melgan_stage_kernel(device, B, C, W, mode):
+    from maskcyclegan_vc_tpu_torch.ops import melgan_stack
+
+    x, blocks, tail = _stage(device, B, C, W, C + W)
+    kw = dict(emit_lrelu=mode == "emit_lrelu", tail=tail if mode == "tail" else None)
+    before = melgan_stack.MELGAN_STACK_KERNEL.launches
+    with torch.inference_mode():
+        got = melgan_stack.melgan_resstack(x, blocks, **kw)
+        torch.cuda.synchronize()
+        want = melgan_stack.melgan_resstack_plain(x, blocks, **kw)
+    assert melgan_stack.MELGAN_STACK_KERNEL.launches == before + 1
+    assert got.shape == want.shape == ((B, W) if mode == "tail" else (B, C, W))
+    torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=1e-4)
+
+
+def test_melgan_stage_reflect_edges(device):
+    """Spikes 5 positions from the start and 3 from the end, where the d = 9
+    taps read mirrored positions (-m -> m, W-1+m -> W-1-m): the kernel's
+    mirror must be the plain chain's reflect pad."""
+    from maskcyclegan_vc_tpu_torch.ops import melgan_stack
+
+    x, blocks, _ = _stage(device, 1, 8, 40, 1)
+    x = torch.zeros_like(x)
+    x[0, :, 5] = 1.0
+    x[0, :, 36] = -2.0
+    with torch.inference_mode():
+        got = melgan_stack.melgan_resstack(x, blocks)
+        want = melgan_stack.melgan_resstack_plain(x, blocks)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_vocoder_decode_on_the_card_matches_cpu(device):
+    """The whole MelGAN (cuDNN up-convs, four K9 calls) on the card against
+    the CPU plain path, at ngf 8: rounding only."""
+    from maskcyclegan_vc_tpu_torch.models.melgan import MelGANGenerator
+    from maskcyclegan_vc_tpu_torch.ops import melgan_stack
+
+    cpu = MelGANGenerator(80, 8, generator=torch.Generator().manual_seed(3))
+    gpu = MelGANGenerator(80, 8, device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    mel = torch.randn(2, 80, 37, generator=torch.Generator().manual_seed(4))
+    before = melgan_stack.MELGAN_STACK_KERNEL.launches
+    with torch.inference_mode():
+        got = gpu(mel.to(device)).cpu()
+        want = cpu(mel)
+    assert melgan_stack.MELGAN_STACK_KERNEL.launches == before + 4
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)

@@ -15,6 +15,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from test_torch_port_melgan import neurips_state_dict
 
 from maskcyclegan_vc_tpu.cli.test import main as jax_convert_main
 from maskcyclegan_vc_tpu.io.checkpoint import _flatten as jax_flatten
@@ -29,7 +30,10 @@ from maskcyclegan_vc_tpu_torch.data.dataset import (
     save_speaker,
     step_generator,
 )
+from maskcyclegan_vc_tpu_torch.data.griffin_lim import decode_mel_griffin_lim
 from maskcyclegan_vc_tpu_torch.io.checkpoint import load_checkpoint_meta
+from maskcyclegan_vc_tpu_torch.models.melgan import decode_mel
+from maskcyclegan_vc_tpu_torch.obs.logger import TrainLogger
 from maskcyclegan_vc_tpu_torch.train.trainer import LOGGED_METRICS, Trainer, TrainerArgs
 
 torch.set_num_threads(1)
@@ -183,7 +187,6 @@ def test_cuda_without_a_gpu_raises(corpus, monkeypatch):
 @pytest.mark.parametrize("flag", [["--dtype", "float32"], ["--fused_norms", "1"],
                                   ["--scan_epochs", "0"], ["--distributed"],
                                   ["--grad_allreduce_dtype", "float32"],
-                                  ["--vocoder_ckpt", "v.pt"], ["--plot_audio", "off"],
                                   ["--precision", "highest"]])
 def test_unported_flags_are_rejected(corpus, flag):
     with pytest.raises(SystemExit):
@@ -242,3 +245,66 @@ def test_finite_check_params_refuses_to_save_a_poisoned_state(corpus):
     with pytest.raises(FloatingPointError, match="A2B"):
         trainer.train()
     assert not glob.glob(str(corpus / "results" / "params" / "ckpts" / "*"))
+
+
+# ---------- audio at plot cadence ----------
+
+@pytest.fixture(scope="module")
+def vocoder_ckpt(corpus):
+    """A random melgan-neurips checkpoint at the corpus's 16 mels, ngf 4."""
+    path = corpus / "vocoder16.pt"
+    torch.save(neurips_state_dict(0, n_mels=N_MELS, ngf=4), path)
+    return str(path)
+
+
+@pytest.mark.parametrize("decoder", ["griffin_lim", "vocoder", "off"])
+def test_train_cli_decodes_the_four_panels(corpus, vocoder_ckpt, monkeypatch, decoder):
+    """One epoch through the CLI with a plot: the four panels are decoded in
+    their speakers' statistics, by MelGAN with --vocoder_ckpt, else by
+    Griffin-Lim at 32 iterations, and not at all with --plot_audio off."""
+    clips = {}
+    monkeypatch.setattr(TrainLogger, "log_audio",
+                        lambda self, tag, wav, step, sr: clips.setdefault(tag, (wav, step, sr)))
+    plots = []
+    real_plot = Trainer._plot
+    monkeypatch.setattr(Trainer, "_plot", lambda self, epoch: plots.append(self)
+                        or real_plot(self, epoch))
+    extra = {"griffin_lim": [], "vocoder": ["--vocoder_ckpt", vocoder_ckpt],
+             "off": ["--plot_audio", "off"]}[decoder]
+    train_main(_args(corpus, f"audio_{decoder}", "--num_epochs", "1",
+                     "--epochs_per_plot", "1", *extra))
+    assert len(plots) == 1
+    if decoder == "off":
+        assert clips == {}
+        return
+    trainer = plots[0]
+    assert (trainer.vocoder is not None) == (decoder == "vocoder")
+    assert sorted(clips) == ["fake_A_audio", "fake_B_audio", "real_A_audio", "real_B_audio"]
+    real_A = trainer.mels_A[0]
+    wav, step, sr = clips["real_A_audio"]
+    assert step == 1 and sr == 22050 and wav.shape == (real_A.shape[1] * 256,)
+    if decoder == "vocoder":
+        want = decode_mel(trainer.vocoder, real_A[None], trainer.mean_A, trainer.std_A)[0]
+        np.testing.assert_array_equal(wav, want.numpy())
+    else:
+        np.testing.assert_array_equal(wav, decode_mel_griffin_lim(
+            real_A, trainer.mean_A, trainer.std_A, n_iter=32))
+    wav_b = clips["fake_B_audio"][0]  # fake B in B's statistics
+    assert np.isfinite(wav_b).all() and wav_b.shape == (real_A.shape[1] * 256,)
+
+
+def test_log_audio_writes_a_wav_where_tensorboard_cannot_encode(tmp_path):
+    class NoSoundfile:
+        def add_audio(self, *args):
+            raise ImportError("soundfile")
+
+        def close(self):
+            pass
+
+    logger = TrainLogger(str(tmp_path), "run", use_tensorboard=False)
+    logger.log_audio("real_A_audio", np.zeros(512, np.float32), 3)
+    assert not list((tmp_path / "run").glob("*.wav"))  # no TensorBoard: nothing
+    logger.tb = NoSoundfile()
+    logger.log_audio("real_A_audio", np.linspace(-1, 1, 512, dtype=np.float32), 3)
+    assert (tmp_path / "run" / "real_A_audio_3.wav").exists()
+    logger.close()
