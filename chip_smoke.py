@@ -26,22 +26,35 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               module itself; decode latency per utterance, audio-seconds
               decoded per second, a profile; then the same CLI with
               --griffin_lim (16 iterations, on the host).
-6. train      the train CLI (cli/train.py main, --device cuda) at full width
-              on two synthetic speakers, 2 epochs then resumed to 3, with
+6. train      the train CLI (cli/train.py main, --device cuda, --scan_epochs
+              1 by default: each step a CUDA-graph replay) at full width on
+              two synthetic speakers, 2 epochs then resumed to 3, with
               --vocoder_ckpt and one plot (its 4 panels decoded: 16 K9
-              calls); the launch counts of the run; one step on the card
-              held against the same step on the CPU (losses and Adam's first
-              moments, the gradients' image); ms/step and audio-seconds
-              trained per second at batch 1 x 64 and 32 x 128 with each
-              step's launch counts, peak memory and a profiler breakdown.
-7. kernels    each kernel against its plain PyTorch version on the card, with
+              calls); the launch counts of the run, a graph's counted at its
+              capture times its replays; the same 3 epochs with
+              --scan_epochs 0, its losses held against the graph run's; one
+              step on the card held against the same step on the CPU (losses
+              and Adam's first moments, the gradients' image); ms/step and
+              audio-seconds trained per second at batch 1 x 64 and 32 x 128,
+              a step at a time and as graph replays (with the device-busy
+              share of each, and the replays' batches held bit for bit
+              against the eager sampler's), each step's launch counts, peak
+              memory and a profiler breakdown.
+7. long crops the train CLI at --num_frames 192 for one epoch, where each
+              step's upSample2 backwards take the split route (K6, then
+              eager PyTorch) and its upSample1 backwards K5, with the launch
+              counts of the run; one step at 1 x 320, where both stages
+              split: ms/step, its kernel sites, and at one upSample2 site the
+              split route against K5 on the same (x, dy), both timed.
+8. kernels    each kernel against its plain PyTorch version on the card, with
               its time, the plain version's, the library call's where one
               exists, and its bound: K1-K5 at every call site recorded in one
               431-frame conversion (unmasked and with the call's lengths) and
               in one training step at each size (unmasked and with lengths
-              one frame short), the fused backward also against autograd; K8
-              on the audio of every bucket the preprocess phase ran; K9 on
-              the four stage inputs of one real 431-frame decode.
+              one frame short), the fused backward also against autograd; K6
+              and K7 (exact) at every inverse-shuffle site of the 1 x 320
+              step; K8 on the audio of every bucket the preprocess phase ran;
+              K9 on the four stage inputs of one real 431-frame decode.
 
 The last three lines are the kernels' JSON record, the card as nvidia-smi
 names it, and {"ok": true, "device": {...}}. Working files go to
@@ -85,10 +98,12 @@ from maskcyclegan_vc_tpu_torch.io.jax_params import (
 )
 from maskcyclegan_vc_tpu_torch.models import Generator
 from maskcyclegan_vc_tpu_torch.models import melgan
+from maskcyclegan_vc_tpu_torch.obs.logger import TrainLogger, to_host
 from maskcyclegan_vc_tpu_torch.ops import cuda_lib, in_gate, melgan_stack, melspec, ps
+from maskcyclegan_vc_tpu_torch.train.graphs import StepRunner
 from maskcyclegan_vc_tpu_torch.train.schedules import ScheduleConfig
 from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, create_train_state
-from maskcyclegan_vc_tpu_torch.train.step import make_train_step
+from maskcyclegan_vc_tpu_torch.train.step import LOGGED_METRICS, make_train_step, make_update
 from maskcyclegan_vc_tpu_torch.utils.device import resolve_device
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -104,11 +119,23 @@ UTTERANCE_FRAMES = (173, 260, 345, 431, 517)  # 2-6 s, VCC2018-like
 PER_FORWARD = {"in_glu": 8, "in": 8, "ps_in_swish": 2}
 # One training step at batch 1 (pair_forwards on, identity on): 6 G
 # forwards, 3 with grad, and 8 D forwards; at batch 32 (pair_forwards
-# off): 10 G forwards, 6 with grad, and 12 D forwards.
-PER_STEP = {1: {"in_glu": 48, "in": 48, "in_swish": 24, "ps_in_swish": 12,
-                "ps_in_swish_bwd": 6},
-            32: {"in_glu": 80, "in": 80, "in_swish": 36, "ps_in_swish": 20,
-                 "ps_in_swish_bwd": 12}}
+# off): 10 G forwards, 6 with grad, and 12 D forwards. Each G forward with
+# grad runs two upsample backwards: K5 for a stage whose per-sample block is
+# within the budget, else the split route (one K6): at 192 frames upSample1
+# takes K5 and upSample2 splits; at 320 frames both split.
+PER_STEP = {(1, 64): {"in_glu": 48, "in": 48, "in_swish": 24, "ps_in_swish": 12,
+                      "ps_in_swish_bwd": 6},
+            (32, 128): {"in_glu": 80, "in": 80, "in_swish": 36, "ps_in_swish": 20,
+                        "ps_in_swish_bwd": 12},
+            (1, 192): {"in_glu": 48, "in": 48, "in_swish": 24, "ps_in_swish": 12,
+                       "ps_in_swish_bwd": 3, "inv_shuffle": 3},
+            (1, 320): {"in_glu": 48, "in": 48, "in_swish": 24, "ps_in_swish": 12,
+                       "inv_shuffle": 6}}
+# The split route against K5 on the same (x, dy): each output within this
+# fraction of its largest magnitude. The two take the statistics in another
+# way (one-pass from x against the forward's two-pass) and sum in another
+# order.
+SPLIT_TOL = 1e-5
 TRAIN_SPEAKER_UTTERANCES = 8
 # Card vs CPU, per leaf of Adam's first moment after one step
 # (phase_cross_step): G's gradients differ by summation order amplified by
@@ -175,6 +202,9 @@ def recording_sites():
 
     launch_rows, forward, backward = (in_gate._launch_rows, ps._forward,
                                       ps.pixel_shuffle_in_swish_backward)
+    launch_shuffle = ps._launch_shuffle
+    shuffle_names = {ps.SHUFFLE_KERNEL.symbol: "shuffle",
+                     ps.INV_SHUFFLE_KERNEL.symbol: "inv_shuffle"}
 
     def rec_launch_rows(kernel, x, vecs, lengths, out_channels):
         record(kernel_names[kernel.symbol], x, lengths)
@@ -188,13 +218,19 @@ def recording_sites():
         record("ps_in_swish_bwd", x, None)
         return backward(x, dy, *args)
 
+    def rec_launch_shuffle(kernel, src):
+        record(shuffle_names[kernel.symbol], src, None)
+        return launch_shuffle(kernel, src)
+
     in_gate._launch_rows, ps._forward = rec_launch_rows, rec_forward
     ps.pixel_shuffle_in_swish_backward = rec_backward
+    ps._launch_shuffle = rec_launch_shuffle
     try:
         yield sites
     finally:
         in_gate._launch_rows, ps._forward = launch_rows, forward
         ps.pixel_shuffle_in_swish_backward = backward
+        ps._launch_shuffle = launch_shuffle
 
 
 def site_counts(sites) -> dict:
@@ -202,6 +238,52 @@ def site_counts(sites) -> dict:
     for s in sites.values():
         counts[s.kernel] = counts.get(s.kernel, 0) + s.count
     return counts
+
+
+@contextlib.contextmanager
+def graph_accounting():
+    """Launches on the card while the block runs, CUDA-graph replays
+    included. The wrappers count a launch when the host calls them: a
+    capture counts each kernel of the step once though nothing runs, and a
+    replay counts nothing. So each capture's counts are recorded and taken
+    off, and added once for each replay of that graph. ``run_launches(acct)``
+    gives the result after the block."""
+    acct = {"captures": 0, "replays": 0, "at_capture": {}, "replayed": {}}
+    per_graph = {}
+    real_capture, real_replay = StepRunner.capture, StepRunner.replay
+
+    def capture(self, *args):
+        before = counts()
+        out = real_capture(self, *args)
+        delta = {k: n - before[k] for k, n in counts().items() if n != before[k]}
+        per_graph[id(out[0])] = delta
+        acct["captures"] += 1
+        for k, n in delta.items():
+            acct["at_capture"][k] = acct["at_capture"].get(k, 0) + n
+        return out
+
+    def replay(self, graph):
+        real_replay(self, graph)
+        acct["replays"] += 1
+        for k, n in per_graph[id(graph)].items():
+            acct["replayed"][k] = acct["replayed"].get(k, 0) + n
+
+    StepRunner.capture, StepRunner.replay = capture, replay
+    try:
+        yield acct
+    finally:
+        StepRunner.capture, StepRunner.replay = real_capture, real_replay
+
+
+def run_launches(acct) -> dict:
+    """The counters, less what captures counted, plus what replays ran."""
+    return {k: n - acct["at_capture"].get(k, 0) + acct["replayed"].get(k, 0)
+            for k, n in counts().items()}
+
+
+def accounting_line(acct) -> str:
+    return (f"graph accounting: {acct['captures']} captures counted {acct['at_capture']} "
+            f"(not run), {acct['replays']} replays ran {acct['replayed']}")
 
 
 KERNELS = {
@@ -237,6 +319,17 @@ KERNELS = {
         replaces="maskcyclegan_vc_tpu/ops/pallas/ps_kernel.py:259 (_sis_bwd_pallas, backward of subpixel_in_swish :386)",
         # per element: z 2, sigmoid 4, dz 5, two sums 3, xhat 2, dx 4
         flops_per_out=20),
+    # The shuffles: measured by measure_shuffles, at the K6 sites.
+    "inv_shuffle": dict(
+        counter=ps.INV_SHUFFLE_KERNEL, fn=ps.inverse_pixel_shuffle,
+        plain=ps.inverse_pixel_shuffle_plain, library=lambda t: F.pixel_unshuffle(t, 2),
+        source="maskcyclegan_vc_tpu_torch/csrc/pixel_shuffle.cu",
+        replaces="maskcyclegan_vc_tpu/ops/pallas/ps_kernel.py:164 (inverse_pixel_shuffle_q_major, body _inv_shuffle_kernel :116)"),
+    "shuffle": dict(
+        counter=ps.SHUFFLE_KERNEL, fn=ps.pixel_shuffle,
+        plain=ps.pixel_shuffle_plain, library=lambda t: F.pixel_shuffle(t, 2),
+        source="maskcyclegan_vc_tpu_torch/csrc/pixel_shuffle.cu",
+        replaces="maskcyclegan_vc_tpu/ops/pallas/ps_kernel.py:138 (pixel_shuffle_q_major, body _ps_shuffle_only :150)"),
     # The audio path's kernels: measured by measure_log_mel / measure_resstack.
     "log_mel": dict(
         counter=melspec.LOG_MEL_KERNEL,
@@ -555,7 +648,8 @@ def profile(fn, wall_s: float, what: str) -> None:
         print(f"profile: {what}: the profiler recorded no device time: not measured")
         return
     groups = {
-        "the port's kernels": r"in_kernel|ps_in_swish|melspec_kernel|resblock_kernel|tail_kernel",
+        "the port's kernels": r"in_kernel|ps_in_swish|pixel_shuffle_kernel|melspec_kernel|"
+                              r"resblock_kernel|tail_kernel",
         "convolutions (cuDNN)": r"conv|xmma|gemm|cudnn|wgrad|dgrad|fprop|winograd|implicit",
         "Adam (foreach)": r"multi_tensor_apply|foreach",
     }
@@ -913,6 +1007,20 @@ def _log_losses(path: str):
     return rows, vals
 
 
+def logged_losses(calls) -> list:
+    """Each step's logged losses as host floats, from the recorded calls of
+    ``TrainLogger.log_iter`` (the values it got, before its 5-decimal text)."""
+    return [[row[k] for k in LOGGED_METRICS]
+            for row in to_host([args[3] for args, _ in calls])]
+
+
+def cli_losses(argv) -> np.ndarray:
+    """The train CLI's logged losses, (steps, 7)."""
+    with capturing(TrainLogger, "log_iter") as calls:
+        train_main(argv)
+    return np.array(logged_losses(calls))
+
+
 def phase_train(device, vocoder_ckpt: str):
     pre, save = os.path.join(WORK, "train_pre"), os.path.join(WORK, "train_results")
     rs = np.random.RandomState(1)
@@ -926,26 +1034,27 @@ def phase_train(device, vocoder_ckpt: str):
             "--epochs_per_save", "1", "--epochs_per_plot", "2", "--steps_per_print", "1",
             "--vocoder_ckpt", vocoder_ckpt]
 
-    # The slice's main path: train through the CLI, then resume. Counts
-    # from 0 just before, read just after.
+    # The slice's main path: train through the CLI (--scan_epochs 1, the
+    # default), then resume. Counts from 0 just before, read just after.
     reset_counts()
-    t0 = time.perf_counter()
-    train_main(args + ["--num_epochs", "2"])
-    t1 = time.perf_counter()
-    train_main(args + ["--num_epochs", "3", "--continue_train"])
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    launches = counts()
+    with graph_accounting() as acct, capturing(TrainLogger, "log_iter") as graph_log:
+        t0 = time.perf_counter()
+        train_main(args + ["--num_epochs", "2"])
+        t1 = time.perf_counter()
+        train_main(args + ["--num_epochs", "3", "--continue_train"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches = run_launches(acct)
     steps = 3 * TRAIN_SPEAKER_UTTERANCES
     # The plot at epoch 2: two conversions, each one generator forward, and
     # its four panels decoded by the vocoder, 4 K9 calls each.
-    want = {k: steps * n + 2 * PER_FORWARD.get(k, 0) for k, n in PER_STEP[1].items()}
-    want.update(log_mel=0, melgan_stack=16)
-    print(f"train: CLI, 2 epochs {t1 - t0:.1f} s, resumed to epoch 3 {t2 - t1:.1f} s "
-          f"(state creation, checkpoint writes and reads included); launches {launches} "
-          f"(expected {want}: {steps} steps, 2 plot conversions, 4 panels decoded)",
-          flush=True)
-    if launches != want:
+    want = {k: steps * n + 2 * PER_FORWARD.get(k, 0) for k, n in PER_STEP[(1, 64)].items()}
+    want.update(log_mel=0, melgan_stack=16, inv_shuffle=0, shuffle=0)
+    print(f"train: CLI (--scan_epochs 1), 2 epochs {t1 - t0:.1f} s, resumed to epoch 3 "
+          f"{t2 - t1:.1f} s (state creation, captures, checkpoint writes and reads included); "
+          f"launches {launches} (expected {want}: {steps} steps, 2 plot conversions, 4 panels "
+          f"decoded); {accounting_line(acct)}", flush=True)
+    if launches != want or acct["replays"] != steps - 2:
         raise AssertionError("the training run did not launch every kernel as expected")
 
     ckpts = os.path.join(save, "smoke", "ckpts")
@@ -959,6 +1068,39 @@ def phase_train(device, vocoder_ckpt: str):
     if step != steps or len(rows) != steps or not np.isfinite(vals).all():
         raise AssertionError("the resumed run did not continue the step counter, "
                              "or logged a non-finite loss")
+
+    # The same 3 epochs a step at a time. cuDNN's default algorithms may sum
+    # in another order from one run to the next: the first G update then
+    # flips the sign of Adam's first step (lr * sign(g)) wherever a gradient
+    # is within rounding of 0, and the D losses of step 1 on already see
+    # generators 2 lr apart there. With cuDNN held to deterministic
+    # algorithms both modes run the same sums, and differ only in the
+    # capturable Adam's f32 bias corrections: there the first 3 steps are
+    # held to 1e-5.
+    common = args + ["--epochs_per_save", "100", "--epochs_per_plot", "100"]
+    ref = cli_losses(common + ["--num_epochs", "3", "--scan_epochs", "0", "--name", "eager"])
+    got = np.array(logged_losses(graph_log))
+    rel = np.abs(got - ref) / np.abs(ref)
+    again = cli_losses(common + ["--num_epochs", "1", "--scan_epochs", "0", "--name", "again"])
+    rel_again = np.abs(again - ref[:len(again)]) / np.abs(ref[:len(again)])
+    print(f"train: --scan_epochs 1 against 0, {len(ref)} steps, cuDNN's default algorithms: "
+          f"largest relative difference of the logged losses {rel[:1].max():.3g} at step 1, "
+          f"{rel[:3].max():.3g} over steps 1-3, {rel.max():.3g} over the whole run; two runs "
+          f"with --scan_epochs 0 differ by {rel_again[:1].max():.3g} at step 1, "
+          f"{rel_again[:3].max():.3g} over steps 1-3, {rel_again.max():.3g} over "
+          f"{len(again)} steps", flush=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        det = [cli_losses(common + ["--num_epochs", "1", "--scan_epochs", str(scan),
+                                    "--name", f"deterministic{scan}"]) for scan in (1, 0)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    rel_det = np.abs(det[0] - det[1]) / np.abs(det[1])
+    print(f"train: --scan_epochs 1 against 0 with deterministic cuDNN, {len(det[1])} steps: "
+          f"logged losses of steps 1-3 within {rel_det[:3].max():.3g} relative (bound 1e-5), "
+          f"{rel_det.max():.3g} over the run", flush=True)
+    if got.shape != ref.shape or det[0].shape != det[1].shape or rel_det[:3].max() > 1e-5:
+        raise AssertionError("the graph run's losses disagree with the eager run's")
     return launches, pre
 
 
@@ -1046,11 +1188,12 @@ def phase_cross_step(pre: str, device) -> None:
           f"the CPU step took {t1 - t0:.1f} s", flush=True)
 
 
-def phase_step_timing(pre: str, device, batch: int, frames: int):
+def phase_step_timing(pre: str, device, batch: int, frames: int, graph_spans: int = 0):
     """ms/step of the step function at one size: the median of 20 steps
     after 5 warm-up steps, host clock around each step ending in a
     synchronize. The launch counts of one step and its kernel sites, as
-    recorded, peak memory and a profile."""
+    recorded, peak memory and a profile. With ``graph_spans``, then the same
+    steps as CUDA-graph replays (``step_timing_graphed``)."""
     cfg, banks = train_setup(pre, batch, frames, device)
     state = create_train_state(cfg, 0, device)
     step = make_train_step(cfg)
@@ -1077,10 +1220,10 @@ def phase_step_timing(pre: str, device, batch: int, frames: int):
           f"warm-up, host clock; min {1e3 * min(times[5:]):.3f}, max "
           f"{1e3 * max(times[5:]):.3f}), {audio_s / (ms / 1e3):.2f} audio-s trained per s, "
           f"peak memory {peak:.2f} GiB; launches in one step {launches} "
-          f"(expected {PER_STEP[batch]}); losses g {float(m['g_loss']):.4f} "
+          f"(expected {PER_STEP[(batch, frames)]}); losses g {float(m['g_loss']):.4f} "
           f"d {float(m['d_loss']):.4f}", flush=True)
-    if launches != PER_STEP[batch] or site_counts(sites) != launches:
-        raise AssertionError(f"one step at batch {batch} launched {launches}, "
+    if launches != PER_STEP[(batch, frames)] or site_counts(sites) != launches:
+        raise AssertionError(f"one step at batch {batch} x {frames} launched {launches}, "
                              f"recorded {site_counts(sites)}")
     if not all(np.isfinite(float(v)) for v in m.values()):
         raise AssertionError(f"non-finite metrics at batch {batch}: {m}")
@@ -1088,7 +1231,160 @@ def phase_step_timing(pre: str, device, batch: int, frames: int):
             f"one training step at batch {batch} x {frames}")
     del state, batches
     torch.cuda.empty_cache()
+    if graph_spans:
+        step_timing_graphed(cfg, banks, device, batch, frames, graph_spans, ms)
     return launches, sites
+
+
+def step_timing_graphed(cfg, banks, device, batch: int, frames: int, spans: int,
+                        eager_ms: float) -> None:
+    """ms/step with each step a CUDA-graph replay (--scan_epochs 1's
+    runner): spans of steps with no host synchronisation inside, each
+    timed as its wall time (host clock, ending in a synchronize) over its
+    steps; the median span. Before that, the first 4 steps one at a time:
+    the batches drawn inside the replays against the eager sampler's, bit
+    for bit. Then the launches per replayed step, and a profile of a span."""
+    state = create_train_state(cfg, 0, device, capturable=True)
+    update = make_update(cfg)
+    runner = StepRunner(cfg, lambda step: update, *banks, 0, batch, frames, 25)
+    equal = []
+    n = 20 if batch == 1 else 4
+    with graph_accounting() as acct:
+        for step in range(4):  # step 0 runs eagerly and captures; 1-3 replay
+            runner.run(state, 1)
+            want = sample_batch(step_generator(0, step, device), *banks, batch, frames, 25)
+            equal.append(all(torch.equal(runner.batch[k], v) for k, v in want.items()))
+        runner.run(state, n)
+        torch.cuda.synchronize()
+    print(f"train: {batch} x {frames} graph replays: batches of steps 0-3 (step 0 eager, "
+          f"1-3 replayed) bit-equal to sample_batch(step_generator(0, step)): {equal}",
+          flush=True)
+    if not all(equal):
+        raise AssertionError("a replay drew another batch than the eager sampler")
+    per_step = {k: v // acct["replays"] for k, v in acct["replayed"].items() if v}
+    walls = []
+    for _ in range(spans):
+        t0 = time.perf_counter()
+        rows = runner.run(state, n)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / n)
+    ms = 1e3 * float(np.median(walls))
+    finite = bool(torch.isfinite(rows).all())
+    print(f"train: step at batch {batch} x {frames} as CUDA-graph replays (--scan_epochs 1): "
+          f"{ms:.3f} ms/step (median of {spans} spans of {n} steps, each span's wall time "
+          f"over its steps, one synchronize at its end; spans {[round(1e3 * w, 3) for w in walls]})"
+          f" against {eager_ms:.3f} a step at a time; launches per replayed step {per_step} "
+          f"(expected {PER_STEP[(batch, frames)]}); losses finite {finite}", flush=True)
+    if per_step != PER_STEP[(batch, frames)] or not finite:
+        raise AssertionError(f"the replayed steps at {batch} x {frames} went wrong")
+    profile(lambda: runner.run(state, n), ms * n / 1e3,
+            f"{n} replayed training steps at batch {batch} x {frames}")
+    del state, runner
+    torch.cuda.empty_cache()
+
+
+def phase_long_crops(pre: str, device):
+    """Long crops: the train CLI at 192 frames for one epoch, where each
+    step's upSample2 backwards take the split route (K6) and its upSample1
+    backwards K5; then a 1 x 320 step, where both split: its time, its
+    sites, and the split route against K5 at one upSample2 site. Returns the
+    run's launches, the 1 x 320 step's sites, and that site's times."""
+    save = os.path.join(WORK, "long_results")
+    n_steps = min(len(MelBank.from_list(load_speaker(pre, sid)[0], 192)) for sid in SPEAKERS)
+    reset_counts()
+    with graph_accounting() as acct:
+        t0 = time.perf_counter()
+        train_main(["--name", "long", "--save_dir", save, "--preprocessed_data_dir", pre,
+                    "--device", "cuda", "--batch_size", "1", "--num_frames", "192",
+                    "--num_epochs", "1", "--epochs_per_save", "100",
+                    "--epochs_per_plot", "100", "--steps_per_print", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = run_launches(acct)
+    want = {k: n_steps * PER_STEP[(1, 192)].get(k, 0) for k in KERNELS}
+    print(f"long crops: CLI --num_frames 192, one epoch of {n_steps} steps (the utterances "
+          f"of at least 192 frames) {wall:.1f} s; launches {launches} (expected {want}: K5 "
+          f"3 and K6 3 a step); {accounting_line(acct)}", flush=True)
+    if launches != want:
+        raise AssertionError("the long-crop run did not launch K5 and K6 as expected")
+    rows, vals = _log_losses(os.path.join(save, "long", "long.log"))
+    if len(rows) != n_steps or not np.isfinite(vals).all():
+        raise AssertionError("the long-crop run logged a non-finite loss")
+
+    kept, real = [], ps.pixel_shuffle_in_swish_backward_split
+
+    def keep_first_upsample2(x, dy, *vecs):
+        if not kept and x.shape[1] == 512:
+            kept.append([t.clone() for t in (x, dy, *vecs)])
+        return real(x, dy, *vecs)
+
+    ps.pixel_shuffle_in_swish_backward_split = keep_first_upsample2
+    try:
+        _, sites = phase_step_timing(pre, device, 1, 320)
+    finally:
+        ps.pixel_shuffle_in_swish_backward_split = real
+    x, dy, s, b = kept[0]
+    _, mean, inv = ps.pixel_shuffle_in_swish_with_stats(x, s, b)
+    split = ps.pixel_shuffle_in_swish_backward_split(x, dy, s, b)
+    fused = ps.pixel_shuffle_in_swish_backward(x, dy, s, b, mean, inv)
+    torch.cuda.synchronize()
+    errs = []
+    for got, ref, what in zip(split, fused, ("dx", "dscale", "dbias")):
+        scale = ref.abs().max().item()
+        errs.append(f"{what} {(got - ref).abs().max().item():.3g} (scale {scale:.3g})")
+        if not torch.allclose(got, ref, atol=SPLIT_TOL * scale, rtol=0):
+            raise AssertionError(f"split route against K5 at {tuple(x.shape)}: {errs[-1]}")
+    reps = 5
+    split_ms = device_ms(lambda: ps.pixel_shuffle_in_swish_backward_split(x, dy, s, b), reps)
+    fused_ms = device_ms(lambda: ps.pixel_shuffle_in_swish_backward(x, dy, s, b, mean, inv),
+                         reps)
+    print(f"long crops: split route against K5 at the 1 x 320 step's upSample2 site x "
+          f"{tuple(x.shape)}: max abs err {', '.join(errs)} (bound {SPLIT_TOL:g} of each "
+          f"output's scale); device ms split route {split_ms:.5f} (K6 and the eager "
+          f"gradient) against K5 {fused_ms:.5f} (CUDA-graph replay)", flush=True)
+    times = {"split_ms": split_ms, "fused_ms": fused_ms, "site": list(x.shape)}
+    del kept, x, dy
+    return launches, sites, times
+
+
+def measure_shuffles(sites, device):
+    """K6 on every inverse-shuffle site, and K7 at the transposed shape:
+    exact against their plain versions, with times and the bound (8 bytes
+    an element, no arithmetic)."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    records = {}
+    for site in (s for s in sites.values() if s.kernel == "inv_shuffle"):
+        B, C, H2, W2 = site.shape
+        for name, shape in (("inv_shuffle", site.shape), ("shuffle", (B, 4 * C, H2 // 2, W2 // 2))):
+            spec = KERNELS[name]
+            t = torch.randn(shape, device=device, generator=gen)
+            got, want = spec["fn"](t), spec["plain"](t)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} at {shape}: max abs err {err:.3g}, not exact")
+            ms = device_ms(lambda: spec["fn"](t), 10)
+            plain_ms = device_ms(lambda: spec["plain"](t), 10)
+            lib_ms = device_ms(lambda: spec["library"](t), 10)
+            b_ms = 1e3 * 8 * t.numel() / HBM_BYTES_PER_S
+            print(f"kernels: train 1x320/step {name:11s} in {str(shape):22s} x{site.count} "
+                  f"max_abs_err {err:.3g} (exact) ms {ms:.5f} plain_ms {plain_ms:.5f} "
+                  f"library_ms {lib_ms:.5f} bound_us {1e3 * b_ms:.3f} (bytes; "
+                  f"{8 * t.numel() / (ms * 1e-3) / 1e12:.2f} TB/s achieved)", flush=True)
+            r = records.setdefault(name, dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                              bound_ms=0.0, max_abs_err=0.0, bound_by="bytes",
+                                              launches=0))
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bound_ms", b_ms)):
+                r[k] += site.count * v
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["launches"] += site.count
+            del t, got, want
+    for k, r in records.items():
+        print(f"kernels: train 1x320/step {k} sum: {r['launches']} sites ms {r['ms']:.5f} "
+              f"plain_ms {r['plain_ms']:.5f} library_ms {r['library_ms']:.5f} "
+              f"bound_ms {r['bound_ms']:.5f} (bytes)", flush=True)
+    return records
 
 
 def main() -> int:
@@ -1103,7 +1399,8 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
 
     t0 = time.perf_counter()
-    logs = cuda_lib.build(["in_gate", "ps_in_swish", "melspec", "melgan_stack"])
+    logs = cuda_lib.build(["in_gate", "ps_in_swish", "melspec", "melgan_stack",
+                           "pixel_shuffle"])
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'nothing (cached)'}",
           flush=True)
     for name, log in logs.items():
@@ -1117,13 +1414,15 @@ def main() -> int:
         device, audio_pre, os.path.join(WORK, "ckpts"))
     launches, pre = phase_train(device, vocoder_ckpt)
     phase_cross_step(pre, device)
-    per_step1, sites1 = phase_step_timing(pre, device, 1, 64)
-    per_step32, sites32 = phase_step_timing(pre, device, 32, 128)
+    per_step1, sites1 = phase_step_timing(pre, device, 1, 64, graph_spans=3)
+    per_step32, sites32 = phase_step_timing(pre, device, 32, 128, graph_spans=2)
+    long_launches, sites320, split_times = phase_long_crops(pre, device)
 
     t0 = time.perf_counter()
     measure_sites(convert_sites, device, "convert/forward")
     step1 = measure_sites(sites1, device, "train 1x64/step")
     step32 = measure_sites(sites32, device, "train 32x128/step")
+    shuffles = measure_shuffles(sites320, device)
     audio = {"log_mel": (measure_log_mel(mel_inputs, device), log_mel_launches),
              "melgan_stack": (measure_resstack(stage_calls, device), stack_launches)}
     print(f"kernels: phase took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1139,6 +1438,20 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "ms_32x128": step32[k]["ms"], "bound_ms_32x128": step32[k]["bound_ms"]})
+    # K6, K7: ms, plain_ms, library_ms and bound_ms summed over the 1 x 320
+    # step's six K6 sites (K7 at the transposed shapes); launches: the
+    # long-crop run's (K7 is on no path: K6's gradient, launched only by the
+    # kernels phase and the card tests).
+    for k in ("inv_shuffle", "shuffle"):
+        r = shuffles[k]
+        kernels.append({
+            "name": k, "route": "cuda", "source": KERNELS[k]["source"],
+            "replaces": KERNELS[k]["replaces"], "launches": long_launches[k],
+            "launches_per_step_1x192": PER_STEP[(1, 192)].get(k, 0),
+            "launches_per_step_1x320": PER_STEP[(1, 320)].get(k, 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     # K8: ms, plain_ms and bound_ms summed over the preprocess run's calls;
     # K9: over the four calls of one 431-frame decode. launches: the
     # preprocess run's and the decode run's counts.
@@ -1148,7 +1461,7 @@ def main() -> int:
             "replaces": KERNELS[k]["replaces"], "launches": n,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "split_route_1x320_upsample2": split_times}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

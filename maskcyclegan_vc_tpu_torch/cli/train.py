@@ -13,10 +13,13 @@ package resumes from or converts with.
         --num_epochs 6172 --batch_size 1 --num_frames 64 --max_mask_len 25 \\
         --decay_after 200000 --epochs_per_save 100 --epochs_per_plot 10
 
-Not defined yet, so argparse rejects them: --dtype and --precision (f32
-only), --fused_norms (the port's kernels always run on the card),
---scan_epochs (one device program per epoch; a CUDA graph is the later
-counterpart), --distributed and --grad_allreduce_dtype (data parallelism).
+``--scan_epochs 1`` (the default, as in the JAX CLI) runs each epoch with no
+host synchronisation inside it: on the card the step is a CUDA graph,
+replayed once per step (``train/graphs.py``); ``--scan_epochs 0`` dispatches
+every step from the host. Not defined yet, so argparse rejects them:
+--dtype and --precision (f32 only), --fused_norms (the port's kernels always
+run on the card), --distributed and --grad_allreduce_dtype (data
+parallelism).
 At plot cadence the four spectrogram panels are also decoded to audio
 (``--plot_audio auto``): by the MelGAN vocoder of ``--vocoder_ckpt``, else
 by Griffin-Lim.
@@ -72,6 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sample_rate", type=int, default=d.sample_rate)
     p.add_argument("--async_save", type=int, choices=[0, 1], default=int(d.async_save),
                    help="write checkpoint files on a thread while training goes on")
+    p.add_argument("--scan_epochs", type=int, choices=[0, 1], default=int(d.scan_epochs),
+                   help="1 = each epoch with no host synchronisation inside it "
+                        "(CUDA-graph replays on the card); 0 = one step at a time")
     p.add_argument("--finite_check", choices=["off", "metrics", "params"],
                    default=d.finite_check,
                    help="metrics = raise at epoch end if any step's logged loss "
@@ -95,6 +101,7 @@ def main(argv=None) -> None:
     targs.decay_after = int(targs.decay_after)
     targs.stop_identity_after = int(targs.stop_identity_after)
     targs.async_save = bool(targs.async_save)
+    targs.scan_epochs = bool(targs.scan_epochs)
     Trainer(targs).train()
 
 

@@ -17,7 +17,10 @@ with the JAX sampler's distributions, per side and per slot:
 
 ``step_generator`` seeds the generator from (seed, step), so a resumed run
 draws the batches an uninterrupted run draws: the contract of JAX's
-``fold_in(base_key, step)``, though not its bits.
+``fold_in(base_key, step)``, though not its bits. A CUDA graph of the step
+reseeds one registered generator with ``step_seed`` before each replay
+instead: a generator seeded afresh starts at Philox offset 0 either way, so
+both draw the same bits.
 """
 
 from __future__ import annotations
@@ -91,10 +94,15 @@ class MelBank:
         return self.data.shape[0]
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """A generator on ``device`` seeded from (seed, step) alone."""
+def step_seed(seed: int, step: int) -> int:
+    """The sampler's seed for one step, from (seed, step) alone."""
     mixed = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(mixed) & (2 ** 63 - 1))
+    return int(mixed) & (2 ** 63 - 1)
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded with ``step_seed(seed, step)``."""
+    return torch.Generator(device=device).manual_seed(step_seed(seed, step))
 
 
 def _sample_side(gen: torch.Generator, bank: MelBank, batch: int, n_frames: int,

@@ -240,10 +240,14 @@ def _moments(opt: torch.optim.Optimizer, module: torch.nn.Module, key: str):
 
 
 def _count(opt: torch.optim.Optimizer) -> int:
-    steps = {int(st["step"]) for st in opt.state.values()}
+    """The optimizer's step count, read in one transfer (a capturable Adam
+    keeps each parameter's on the device)."""
+    if not opt.state:
+        return 0
+    steps = set(torch.stack([st["step"] for st in opt.state.values()]).cpu().tolist())
     if len(steps) > 1:
         raise ValueError(f"parameters of one optimizer at different steps: {steps}")
-    return steps.pop() if steps else 0
+    return int(steps.pop())
 
 
 def train_state_to_jax(state) -> Dict[str, np.ndarray]:
@@ -276,6 +280,9 @@ def train_state_from_jax(flat: Mapping, state):
         if len(counts) != 1:
             raise ValueError(f"{opt_key}: Adam and schedule counts differ: {counts}")
         count = counts.pop()
+        # Where Adam's own first step would put its count: on the
+        # parameter's device for a capturable Adam, else on the CPU.
+        on_device = opt.defaults["capturable"]
         for name, model in models.items():
             model.load_state_dict(from_jax(_subtree(flat, f"{params_key}/{name}")),
                                   strict=True)
@@ -283,7 +290,8 @@ def train_state_from_jax(flat: Mapping, state):
                       for m in (".mu", ".nu"))
             for pname, p in model.named_parameters():
                 if not pname.startswith(DEAD_PREFIX):
-                    opt.state[p] = {"step": torch.tensor(float(count)),
+                    opt.state[p] = {"step": torch.tensor(
+                                        float(count), device=p.device if on_device else "cpu"),
                                     "exp_avg": mu[pname].to(p.device),
                                     "exp_avg_sq": nu[pname].to(p.device)}
     return state

@@ -14,9 +14,27 @@ generator.
 for a tensor on the card and runs ``pixel_shuffle_in_swish_plain`` for a
 tensor on the CPU. Where an input requires grad it runs through an
 autograd Function: the forward also keeps each (sample, channel)'s mean
-and inv-std, and the backward is the fused kernel
-``pixel_shuffle_in_swish_backward`` on the card, its plain version on the
-CPU. The masked function has no backward.
+and inv-std. The masked function has no backward.
+
+The backward takes the JAX package's two routes (``_sis_bwd``,
+``ps_kernel.py:386-392``), chosen by the same per-sample size:
+
+- up to ``BWD_BUDGET_BYTES`` of ``pixel_shuffle_in_swish_backward_bytes``,
+  the fused kernel K5, ``pixel_shuffle_in_swish_backward``, from the
+  forward's statistics;
+- past it, ``pixel_shuffle_in_swish_backward_split``: the inverse shuffle
+  K6 on dy, then the gradient in eager PyTorch from one-pass statistics
+  recomputed from x (``_sis_bwd_xla``).
+
+On the TPU the budget bounds the fused kernel's VMEM blocks; the card has
+no such limit, but the port keeps it so that both packages run the same
+formulas at every crop size (the full-width generator's upSample2 takes the
+split route from 137 frames, upSample1 from 273), and since it is the JAX
+package's only path through K6. On the CPU both routes run plain versions.
+
+``pixel_shuffle`` (K7) and ``inverse_pixel_shuffle`` (K6) are the bare
+permutations, ``csrc/pixel_shuffle.cu``: each is the other's transpose, so
+each one's gradient is the other kernel.
 """
 
 from __future__ import annotations
@@ -40,6 +58,14 @@ PS_IN_SWISH_KERNEL = CudaKernel("ps_in_swish", "ps_in_swish_forward",
 PS_IN_SWISH_BWD_KERNEL = CudaKernel("ps_in_swish", "ps_in_swish_backward",
                                     [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
                                      INT, INT, INT, INT, PTR])
+SHUFFLE_KERNEL = CudaKernel("pixel_shuffle", "pixel_shuffle_forward",
+                            [PTR, PTR, INT, INT, INT, INT, PTR])
+INV_SHUFFLE_KERNEL = CudaKernel("pixel_shuffle", "inverse_pixel_shuffle_forward",
+                                [PTR, PTR, INT, INT, INT, INT, PTR])
+
+# ``_BWD_VMEM_BUDGET`` of ps_kernel.py: past it the backward takes the split
+# route. Read at each call, so a test may patch it.
+BWD_BUDGET_BYTES = 32 << 20
 
 
 def pixel_shuffle_in_swish_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -86,6 +112,74 @@ def _check(x: torch.Tensor):
     if x.ndim != 4 or x.shape[1] % 4:
         raise ValueError(f"expected (B, 4C, H, W), got {tuple(x.shape)}")
     return x.shape[0], x.shape[1] // 4, x.shape[2], x.shape[3]
+
+
+def pixel_shuffle_plain(x: torch.Tensor) -> torch.Tensor:
+    """(B, 4C, H, W) -> (B, C, 2H, 2W): ``F.pixel_shuffle(x, 2)``."""
+    return F.pixel_shuffle(x, 2)
+
+
+def inverse_pixel_shuffle_plain(dy: torch.Tensor) -> torch.Tensor:
+    """(B, C, 2H, 2W) -> (B, 4C, H, W): ``F.pixel_unshuffle(dy, 2)``."""
+    return F.pixel_unshuffle(dy, 2)
+
+
+def _launch_shuffle(kernel: CudaKernel, src: torch.Tensor) -> torch.Tensor:
+    """K7 (``SHUFFLE_KERNEL``) on a (B, 4C, H, W) tensor, or K6 on a
+    (B, C, 2H, 2W) one: one launch on the card, the plain version on the
+    CPU."""
+    if src.device.type == "cpu":
+        plain = pixel_shuffle_plain if kernel is SHUFFLE_KERNEL else inverse_pixel_shuffle_plain
+        return plain(src)
+    check_args(src, src.shape[1], (), None)
+    if kernel is SHUFFLE_KERNEL:
+        B, C, H, W = _check(src)
+        out = torch.empty((B, C, 2 * H, 2 * W), device=src.device, dtype=src.dtype)
+    else:
+        if src.ndim != 4 or src.shape[2] % 2 or src.shape[3] % 2:
+            raise ValueError(f"expected (B, C, 2H, 2W), got {tuple(src.shape)}")
+        B, C, H, W = src.shape[0], src.shape[1], src.shape[2] // 2, src.shape[3] // 2
+        out = torch.empty((B, 4 * C, H, W), device=src.device, dtype=src.dtype)
+    if src.data_ptr() % 8:
+        raise ValueError("expected an 8-byte aligned tensor")
+    with torch.cuda.device(src.device):
+        kernel(src.data_ptr(), out.data_ptr(), B, C, H, W,
+               torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+class _PixelShuffleFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _launch_shuffle(SHUFFLE_KERNEL, x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return inverse_pixel_shuffle(dy.contiguous())
+
+
+class _InversePixelShuffleFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dy):
+        return _launch_shuffle(INV_SHUFFLE_KERNEL, dy)
+
+    @staticmethod
+    def backward(ctx, dx):
+        return pixel_shuffle(dx.contiguous())
+
+
+def pixel_shuffle(x: torch.Tensor) -> torch.Tensor:
+    """K7: (B, 4C, H, W) PixelShuffle-ordered -> (B, C, 2H, 2W)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _PixelShuffleFn.apply(x)
+    return _launch_shuffle(SHUFFLE_KERNEL, x)
+
+
+def inverse_pixel_shuffle(dy: torch.Tensor) -> torch.Tensor:
+    """K6: (B, C, 2H, 2W) -> (B, 4C, H, W) PixelShuffle-ordered."""
+    if torch.is_grad_enabled() and dy.requires_grad:
+        return _InversePixelShuffleFn.apply(dy)
+    return _launch_shuffle(INV_SHUFFLE_KERNEL, dy)
 
 
 def _forward(x, scale, bias, lengths=None, stats=False):
@@ -143,6 +237,42 @@ def pixel_shuffle_in_swish_backward(x: torch.Tensor, dy: torch.Tensor,
     return dx, dscale.sum(0), dbias.sum(0)
 
 
+def pixel_shuffle_in_swish_backward_bytes(x: torch.Tensor) -> int:
+    """``_sis_bwd_vmem_bytes`` of ps_kernel.py: six times one sample of x
+    (x, dy and dx blocks, each double-buffered on the TPU)."""
+    return 6 * x[0].numel() * x.element_size()
+
+
+def pixel_shuffle_in_swish_backward_split(x: torch.Tensor, dy: torch.Tensor,
+                                          scale: torch.Tensor, bias: torch.Tensor):
+    """(dx, dscale, dbias) of the unmasked function, dscale and dbias summed
+    over the batch: ``_sis_bwd_xla`` (``ps_kernel.py:314-336``). K6 brings dy
+    into x's layout; the statistics are recomputed from x in one pass,
+    rsqrt(max(E[x^2] - E[x]^2, 0) + eps), not taken from the forward."""
+    B, C, H, W = _check(x)
+    check_args(x, C, (scale, bias), None)
+    dy = dy.contiguous()
+    if dy.shape != (B, C, 2 * H, 2 * W) or dy.dtype != torch.float32 \
+            or dy.device != x.device:
+        raise ValueError(f"expected float32 dy of shape {(B, C, 2 * H, 2 * W)} on "
+                         f"{x.device}, got {tuple(dy.shape)}")
+    n = 4 * H * W
+    dyq = inverse_pixel_shuffle(dy).reshape(B, C, n)
+    xs = x.reshape(B, C, n)
+    mean = xs.mean(-1, keepdim=True)
+    var = ((xs * xs).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    inv = torch.rsqrt(var + EPS)
+    xhat = (xs - mean) * inv
+    sc = scale[None, :, None]
+    z = xhat * sc + bias[None, :, None]
+    s = torch.sigmoid(z)
+    dz = dyq * (s + z * s * (1.0 - s))
+    sdz = dz.sum(-1, keepdim=True)
+    sdzx = (dz * xhat).sum(-1, keepdim=True)
+    dx = (sc * inv) * (dz - sdz / n - xhat * sdzx / n)
+    return dx.reshape(x.shape), sdzx.sum((0, 2)), sdz.sum((0, 2))
+
+
 class _PixelShuffleInSwishFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias):
@@ -153,6 +283,8 @@ class _PixelShuffleInSwishFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale, bias, mean, inv = ctx.saved_tensors
+        if pixel_shuffle_in_swish_backward_bytes(x) > BWD_BUDGET_BYTES:
+            return pixel_shuffle_in_swish_backward_split(x, dy, scale, bias)
         return pixel_shuffle_in_swish_backward(x, dy, scale, bias, mean, inv)
 
 

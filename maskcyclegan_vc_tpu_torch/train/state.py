@@ -72,26 +72,43 @@ class TrainState:
 
     def set_learning_rates(self, sched: ScheduleConfig) -> None:
         """Both Adams' lr for the coming update, from the schedule at the
-        step count before it (optax ``scale_by_schedule``'s count)."""
+        step count before it (optax ``scale_by_schedule``'s count). A
+        capturable Adam's lr is a device tensor, written in place (a launch,
+        no host synchronisation), so that a captured step reads it."""
         for opt, lr in ((self.g_opt, generator_lr(sched, self.step)),
                         (self.d_opt, discriminator_lr(sched, self.step))):
             for group in opt.param_groups:
-                group["lr"] = lr
+                if isinstance(group["lr"], torch.Tensor):
+                    group["lr"].fill_(lr)
+                else:
+                    group["lr"] = lr
 
 
-def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
+def make_optimizer(cfg: TrainConfig, params, capturable: bool = False) -> torch.optim.Adam:
     """torch Adam matches optax ``scale_by_adam`` then ``-lr``: both compute
     lr * m_hat / (sqrt(v_hat) + eps) with m_hat = m / (1 - b1^t) and
     v_hat = v / (1 - b2^t), eps after the bias-corrected square root (torch
-    writes it as lr/(1-b1^t) * m / (sqrt(v)/sqrt(1-b2^t) + eps))."""
-    return torch.optim.Adam(params, lr=cfg.schedule.generator_lr,
-                            betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps)
+    writes it as lr/(1-b1^t) * m / (sqrt(v)/sqrt(1-b2^t) + eps)).
+
+    ``capturable``: the form a CUDA graph can capture, for parameters on the
+    card: the step count and the bias corrections stay on the device and the
+    lr is a float32 device tensor (torch supports this only on devices it
+    lists, the CPU not among them)."""
+    if not capturable:
+        return torch.optim.Adam(params, lr=cfg.schedule.generator_lr,
+                                betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps)
+    params = list(params)
+    lr = torch.tensor(cfg.schedule.generator_lr, device=params[0].device)
+    return torch.optim.Adam(params, lr=lr, betas=(cfg.adam_b1, cfg.adam_b2),
+                            eps=cfg.adam_eps, capturable=True)
 
 
-def create_train_state(cfg: TrainConfig, seed: int = 0, device="cpu") -> TrainState:
+def create_train_state(cfg: TrainConfig, seed: int = 0, device="cpu",
+                       capturable: bool = False) -> TrainState:
     """Both generators and all four discriminators, torch's default init
     drawn from seeded CPU generators (seed, seed+1 for A2B, B2A; seed+2..5
-    for A, B, A2, B2, as the JAX package seeds them), and both optimizers."""
+    for A, B, A2, B2, as the JAX package seeds them), and both optimizers
+    (``make_optimizer``'s ``capturable``)."""
     device = torch.device(device)
     g = {name: Generator(cfg.n_mels, cfg.residual_channels, device=device,
                          generator=torch.Generator().manual_seed(seed + i))
@@ -100,6 +117,6 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, device="cpu") -> TrainSt
                              generator=torch.Generator().manual_seed(seed + 2 + i))
          for i, name in enumerate(D_NAMES)}
     state = TrainState(0, g, d, None, None)
-    state.g_opt = make_optimizer(cfg, state.g_params())
-    state.d_opt = make_optimizer(cfg, state.d_params())
+    state.g_opt = make_optimizer(cfg, state.g_params(), capturable)
+    state.d_opt = make_optimizer(cfg, state.d_params(), capturable)
     return state

@@ -11,6 +11,11 @@ Gradients are taken with ``torch.autograd.grad`` over one side's
 parameters only: the G loss runs through the discriminators but never
 differentiates their weights (JAX differentiates only ``g_params`` there),
 and no ``.grad`` accumulates anywhere between the two updates.
+
+``make_update`` is the device work of one step alone: it reads nothing back
+to the host and changes no host state, so a CUDA graph can capture it
+(``train/graphs.py``). ``make_train_step`` wraps it with what a step does on
+the host: the learning rates for the step and the step count.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, TrainState
 
 METRICS = ("g_loss", "d_loss", "identity_lambda", "g_adv_loss", "g_cycle_loss",
            "g_identity_loss", "d_loss_first", "d_loss_second")
+LOGGED_METRICS = tuple(k for k in METRICS if k != "identity_lambda")
 
 
 def _lsgan(pred: torch.Tensor, target: float) -> torch.Tensor:
@@ -48,7 +54,9 @@ def make_loss_fns(cfg: TrainConfig, with_identity: bool = True):
 
     def gen_apply(gen, x, mask):
         if cfg.remat:
-            return checkpoint(gen, x, mask, use_reentrant=False)
+            # The generator draws no random numbers, so there is no RNG
+            # state to replay (and none to read inside a graph capture).
+            return checkpoint(gen, x, mask, use_reentrant=False, preserve_rng_state=False)
         return gen(x, mask)
 
     def g_loss_fn(g, d, batch, lam_id: float):
@@ -150,18 +158,15 @@ def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
     opt.zero_grad(set_to_none=True)
 
 
-def make_train_step(cfg: TrainConfig, with_identity: bool = True):
-    """``train_step(state, batch) -> (state, metrics)``; the state is
-    updated in place. batch: {"real_A", "mask_A", "real_B", "mask_B"}, each
-    (B, M, T). The metrics are 0-dim device tensors: reading them is the
-    caller's choice (each read waits for the device)."""
+def make_update(cfg: TrainConfig, with_identity: bool = True):
+    """``update(state, batch, lam_id) -> metrics``: the G update, then the D
+    update, at the learning rates the optimizers hold, with identity weight
+    ``lam_id`` (a host float: within one variant of the trainer it is
+    constant, the schedule's weight up to the cutoff and 0 after it). The
+    metrics are 0-dim device tensors."""
     g_loss_fn, d_loss_fn = make_loss_fns(cfg, with_identity)
-    sched = cfg.schedule
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        lam_id = identity_lambda(sched, state.step)
-        state.set_learning_rates(sched)
-
+    def update(state: TrainState, batch: Dict[str, torch.Tensor], lam_id: float):
         g_params = state.g_params()
         g_loss, g_aux = g_loss_fn(state.g, state.d, batch, lam_id)
         _apply(state.g_opt, g_params, torch.autograd.grad(g_loss, g_params))
@@ -171,11 +176,31 @@ def make_train_step(cfg: TrainConfig, with_identity: bool = True):
         d_loss, d_aux = d_loss_fn(state.d, fakes, batch)
         _apply(state.d_opt, d_params, torch.autograd.grad(d_loss, d_params))
 
-        state.step += 1
         device = batch["real_A"].device
         metrics = {"g_loss": g_loss, "d_loss": d_loss,
                    "identity_lambda": torch.full((), lam_id, device=device),
                    **g_aux, **d_aux}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return update
+
+
+def make_train_step(cfg: TrainConfig, with_identity: bool = True):
+    """``train_step(state, batch) -> (state, metrics)``; the state is
+    updated in place. batch: {"real_A", "mask_A", "real_B", "mask_B"}, each
+    (B, M, T). The metrics are 0-dim device tensors: reading them is the
+    caller's choice (each read waits for the device)."""
+    return as_train_step(cfg, make_update(cfg, with_identity))
+
+
+def as_train_step(cfg: TrainConfig, update):
+    """One step around ``update``: the schedule's learning rates and
+    identity weight for the step, the update, the step count."""
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        lam_id = identity_lambda(cfg.schedule, state.step)
+        state.set_learning_rates(cfg.schedule)
+        metrics = update(state, batch, lam_id)
+        state.step += 1
+        return state, metrics
 
     return train_step

@@ -1,15 +1,22 @@
 """Training loop: sampler -> train step -> logs -> checkpoints.
 
-Counterpart of ``maskcyclegan_vc_tpu/train/trainer.py``, one step at a time
-(the JAX package's ``lax.scan`` epochs have no counterpart yet). The
+Counterpart of ``maskcyclegan_vc_tpu/train/trainer.py``. The
 identity-loss variant of the step switches off after
 ``stop_identity_after // batch_size`` steps. Batches are drawn on the
 device from a generator seeded by (seed, step), so ``--continue_train``
-resumes the batch stream of an uninterrupted run. The loop reads the
-device only at the print cadence and once per epoch: then every step's
-logged losses are checked for finiteness, and a failing epoch's per-step
-values are written to the log before the run stops. However the loop ends,
-an in-flight checkpoint write is flushed and the logger closed.
+resumes the batch stream of an uninterrupted run, in either mode:
+
+- ``scan_epochs`` (the default, as in the JAX trainer): each epoch runs
+  through ``train.graphs.StepRunner``, CUDA-graph replays on the card,
+  with no host synchronisation inside the epoch; the epoch's metrics are
+  read from the device once, at its end, and then logged step by step.
+- otherwise one step at a time from the host, the device read only at the
+  print cadence and at the epoch's end.
+
+At each epoch's end every step's logged losses are checked for finiteness,
+and a failing epoch's per-step values are written to the log before the run
+stops. However the loop ends, an in-flight checkpoint write is flushed and
+the logger closed.
 """
 
 from __future__ import annotations
@@ -38,14 +45,12 @@ from maskcyclegan_vc_tpu_torch.io.checkpoint import (
 from maskcyclegan_vc_tpu_torch.io.jax_params import train_state_to_jax
 from maskcyclegan_vc_tpu_torch.models.melgan import decode_mel, load_vocoder
 from maskcyclegan_vc_tpu_torch.obs.logger import TrainLogger, to_host
+from maskcyclegan_vc_tpu_torch.train.graphs import StepRunner
 from maskcyclegan_vc_tpu_torch.train.schedules import ScheduleConfig
 from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, create_train_state
-from maskcyclegan_vc_tpu_torch.train.step import make_train_step
+from maskcyclegan_vc_tpu_torch.train.step import LOGGED_METRICS, as_train_step, make_update
 from maskcyclegan_vc_tpu_torch.utils.debug import check_finite
 from maskcyclegan_vc_tpu_torch.utils.device import resolve_device
-
-LOGGED_METRICS = ("g_loss", "d_loss", "g_adv_loss", "g_cycle_loss",
-                  "g_identity_loss", "d_loss_first", "d_loss_second")
 
 
 @dataclasses.dataclass
@@ -79,6 +84,9 @@ class TrainerArgs:
     remat: bool = False
     sample_rate: int = 22050
     async_save: bool = True
+    # Each epoch with no host synchronisation inside it: CUDA-graph replays
+    # on the card (train/graphs.py); False = one step at a time.
+    scan_epochs: bool = True
     # "metrics": raise at epoch end if any step's logged loss is not
     # finite; "params": also check the whole state before each checkpoint
     # write, so a diverged run never overwrites its last good one.
@@ -113,7 +121,13 @@ class Trainer:
         self._identity_cutoff = a.stop_identity_after // a.batch_size
         self._step_fns = {}
 
-        self.state = create_train_state(self.cfg, a.seed, self.device)
+        self.state = create_train_state(self.cfg, a.seed, self.device,
+                                        capturable=a.scan_epochs and self.device.type == "cuda")
+        self._runner = None
+        if a.scan_epochs:
+            self._runner = StepRunner(self.cfg, lambda step: self.step_fn(step),
+                                      self.bank_A, self.bank_B, a.seed, a.batch_size,
+                                      a.num_frames, a.max_mask_len)
         self.start_epoch = 1
         self.ckpt_dir = os.path.join(a.save_dir, a.name, "ckpts")
         if a.continue_train:
@@ -128,10 +142,11 @@ class Trainer:
         self._saver = AsyncSaver()
 
     def step_fn(self, step: int):
-        """The step with identity terms up to the cutoff, without after it."""
+        """The update (``make_update``) with identity terms up to the cutoff,
+        without after it; one object per variant."""
         wi = step <= self._identity_cutoff
         if wi not in self._step_fns:
-            self._step_fns[wi] = make_train_step(self.cfg, with_identity=wi)
+            self._step_fns[wi] = make_update(self.cfg, with_identity=wi)
         return self._step_fns[wi]
 
     def train(self) -> None:
@@ -145,25 +160,38 @@ class Trainer:
 
     def _run(self) -> None:
         a = self.args
-        step = self.state.step
         for epoch in range(self.start_epoch, a.num_epochs + 1):
             t0 = time.time()
-            rows = []
-            for _ in range(self.steps_per_epoch):
-                batch = sample_batch(step_generator(a.seed, step, self.device),
-                                     self.bank_A, self.bank_B, a.batch_size,
-                                     a.num_frames, a.max_mask_len)
-                self.state, metrics = self.step_fn(step)(self.state, batch)
-                step += 1
-                rows.append({k: metrics[k] for k in LOGGED_METRICS})
-                self.logger.log_iter(step, epoch, rows[-1], batch_size=a.batch_size)
-            self._check_metrics_finite(rows, epoch, step - len(rows) + 1)
+            first = self.state.step + 1
+            if self._runner is not None:
+                # The epoch's one read of the device.
+                vals = self._runner.run(self.state, self.steps_per_epoch).cpu().tolist()
+                rows = [dict(zip(LOGGED_METRICS, v)) for v in vals]
+                for i, row in enumerate(rows):
+                    self.logger.log_iter(first + i, epoch, row, batch_size=a.batch_size)
+            else:
+                rows = self._run_steps(epoch)
+            self._check_metrics_finite(rows, epoch, first)
             if epoch % a.epochs_per_plot == 0:
                 self._plot(epoch)
             if epoch % a.epochs_per_save == 0:
                 self._save(epoch)
             self.logger.write(f"epoch {epoch} done in {time.time() - t0:.1f}s",
                               console=False)
+
+    def _run_steps(self, epoch: int):
+        """One epoch a step at a time; returns the per-step metric rows."""
+        a = self.args
+        rows = []
+        for _ in range(self.steps_per_epoch):
+            step = self.state.step
+            batch = sample_batch(step_generator(a.seed, step, self.device),
+                                 self.bank_A, self.bank_B, a.batch_size,
+                                 a.num_frames, a.max_mask_len)
+            self.state, metrics = as_train_step(self.cfg, self.step_fn(step))(self.state, batch)
+            rows.append({k: metrics[k] for k in LOGGED_METRICS})
+            self.logger.log_iter(step + 1, epoch, rows[-1], batch_size=a.batch_size)
+        return rows
 
     def _check_metrics_finite(self, rows, epoch: int, first_step: int) -> None:
         """Every step's logged losses, read in one transfer; a failing

@@ -15,14 +15,22 @@ dscale and dbias are sums of n = 4HW terms per (sample, channel), summed
 again over the batch, in another order than the plain version's: f32
 summation error grows with the sum of the terms' magnitudes, so their bound
 is 1e-5 of that sum (see ``_sum_bound``). The mel frontend (K8) and the
-MelGAN stage (K9) have their tolerances stated beside their tests.
+MelGAN stage (K9) have their tolerances stated beside their tests. The
+shuffles (K6, K7) are permutations and must be exact. The last tests run
+the train step as CUDA-graph replays against the same steps run eagerly.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from maskcyclegan_vc_tpu_torch.data.dataset import MelBank, sample_batch, step_generator
 from maskcyclegan_vc_tpu_torch.models import Discriminator, Generator
 from maskcyclegan_vc_tpu_torch.ops import in_gate, ps
+from maskcyclegan_vc_tpu_torch.train.graphs import StepRunner
+from maskcyclegan_vc_tpu_torch.train.schedules import ScheduleConfig
+from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, create_train_state
+from maskcyclegan_vc_tpu_torch.train.step import LOGGED_METRICS, make_train_step, make_update
 from maskcyclegan_vc_tpu_torch.utils.device import resolve_device
 
 pytestmark = pytest.mark.cuda
@@ -155,6 +163,74 @@ def test_backward_noncontiguous_cotangent(device):
     dx = ps.pixel_shuffle_in_swish_backward(x, dy, s, b, mean, inv)[0]
     want = ps.pixel_shuffle_in_swish_backward_plain(x, dy.contiguous(), s, b, mean, inv)[0]
     torch.testing.assert_close(dx, want, **TOL)
+
+
+# ---------- K6 and K7, the inverse shuffle and the shuffle ----------
+
+# x shapes (B, 4C, H, W): odd and even W; the full-width upSample1 and
+# upSample2 inputs of a 1 x 320 step's batch-2 forward.
+@pytest.mark.parametrize("shape", [(2, 12, 3, 5), (1, 8, 4, 7), (3, 16, 5, 6),
+                                   (2, 1024, 20, 80), (2, 512, 40, 160), (1, 512, 40, 161)])
+def test_shuffle_kernels_exact(device, shape):
+    x, _ = _inputs(device, shape, 1, 0, 10)
+    B, C4, H, W = shape
+    y = torch.randn((B, C4 // 4, 2 * H, 2 * W), device=device,
+                    generator=torch.Generator(device=device).manual_seed(11))
+    before = (ps.SHUFFLE_KERNEL.launches, ps.INV_SHUFFLE_KERNEL.launches)
+    got_y, got_x = ps.pixel_shuffle(x), ps.inverse_pixel_shuffle(y)
+    torch.cuda.synchronize()
+    assert (ps.SHUFFLE_KERNEL.launches, ps.INV_SHUFFLE_KERNEL.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(got_y, ps.pixel_shuffle_plain(x))
+    assert torch.equal(got_x, ps.inverse_pixel_shuffle_plain(y))
+
+
+def test_inverse_shuffle_gradient_is_the_shuffle(device):
+    g = torch.Generator(device=device).manual_seed(12)
+    y = torch.randn((2, 8, 6, 10), device=device, generator=g).requires_grad_()
+    dx = torch.randn((2, 32, 3, 5), device=device, generator=g)
+    before = ps.SHUFFLE_KERNEL.launches
+    (got,) = torch.autograd.grad(ps.inverse_pixel_shuffle(y), y, dx)
+    torch.cuda.synchronize()
+    assert ps.SHUFFLE_KERNEL.launches == before + 1
+    assert torch.equal(got, ps.pixel_shuffle_plain(dx))
+
+
+# upSample2 and upSample1 of a 1 x 320 step (batch 2), and a small ragged case.
+@pytest.mark.parametrize("shape", [(2, 512, 40, 160), (2, 1024, 20, 80), (3, 16, 5, 7)])
+def test_split_backward_matches_fused(device, shape):
+    """The split route (K6, then eager PyTorch from one-pass statistics)
+    against K5 (the forward's two-pass statistics) on the same (x, dy):
+    each output within 1e-5 of its largest magnitude."""
+    B, C4, H, W = shape
+    x, (s, b) = _inputs(device, shape, C4 // 4, 2, 13)
+    dy = torch.randn((B, C4 // 4, 2 * H, 2 * W), device=device,
+                     generator=torch.Generator(device=device).manual_seed(14))
+    _, mean, inv = ps.pixel_shuffle_in_swish_with_stats(x, s, b)
+    before = ps.INV_SHUFFLE_KERNEL.launches
+    split = ps.pixel_shuffle_in_swish_backward_split(x, dy, s, b)
+    fused = ps.pixel_shuffle_in_swish_backward(x, dy, s, b, mean, inv)
+    torch.cuda.synchronize()
+    assert ps.INV_SHUFFLE_KERNEL.launches == before + 1
+    for got, want in zip(split, fused):
+        scale = want.abs().max().item()
+        torch.testing.assert_close(got, want, atol=1e-5 * scale, rtol=0)
+
+
+def test_gradient_past_the_budget_takes_the_split_route(device):
+    """upSample2 at 1 x 192: 6 x 4 x 512 x 40 x 96 bytes, past 32 MiB."""
+    x, (s, b) = _inputs(device, (1, 512, 40, 96), 128, 2, 15)
+    x.requires_grad_()
+    assert ps.pixel_shuffle_in_swish_backward_bytes(x) > ps.BWD_BUDGET_BYTES
+    before = (ps.INV_SHUFFLE_KERNEL.launches, ps.PS_IN_SWISH_BWD_KERNEL.launches)
+    y = ps.pixel_shuffle_in_swish(x, s, b)
+    dy = torch.randn_like(y)
+    (dx,) = torch.autograd.grad(y, x, dy)
+    torch.cuda.synchronize()
+    assert (ps.INV_SHUFFLE_KERNEL.launches, ps.PS_IN_SWISH_BWD_KERNEL.launches) == \
+        (before[0] + 1, before[1])
+    want = ps.pixel_shuffle_in_swish_backward_split(x.detach(), dy, s, b)[0]
+    assert torch.equal(dx, want)
 
 
 def _rel_close(grads_got, grads_want, bound: float):
@@ -329,3 +405,88 @@ def test_vocoder_decode_on_the_card_matches_cpu(device):
         want = cpu(mel)
     assert melgan_stack.MELGAN_STACK_KERNEL.launches == before + 4
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+
+# ---------- the train step as CUDA-graph replays ----------
+#
+# Against the same steps run eagerly from the host. Batches bit for bit;
+# losses to 1e-5 relative; Adam's first moments per leaf within the bounds
+# chip_smoke.py holds the card against the CPU with (MOMENT_BOUND), though
+# here only cuDNN's summation order and the capturable Adam's f32 bias
+# corrections differ.
+MOMENT_BOUND = {"g": 5e-3, "d": 1e-2}
+
+
+def _tiny_training(device, remat=False):
+    rs = np.random.RandomState(0)
+    banks = [MelBank.from_list([rs.randn(16, t).astype(np.float32) for t in (40, 47, 52, 63)],
+                               32, device) for _ in range(2)]
+    sched = ScheduleConfig(n_samples=4, batch_size=1, stop_identity_after=2)
+    cfg = TrainConfig(schedule=sched, n_mels=16, num_frames=32, residual_channels=8,
+                      remat=remat)
+    return cfg, banks
+
+
+def _runner(cfg, banks, state):
+    updates = {wi: make_update(cfg, wi) for wi in (True, False)}
+    cutoff = cfg.schedule.stop_identity_after // cfg.schedule.batch_size
+    return StepRunner(cfg, lambda step: updates[step <= cutoff], *banks, 0, 1, 32, 25)
+
+
+def test_graph_batches_equal_the_eager_samplers(device):
+    """Steps 0 and 3 run eagerly (each variant's first), 1, 2, 4 and 5 as
+    replays."""
+    cfg, banks = _tiny_training(device)
+    state = create_train_state(cfg, 0, device, capturable=True)
+    runner = _runner(cfg, banks, state)
+    for step in range(6):
+        runner.run(state, 1)
+        torch.cuda.synchronize()
+        want = sample_batch(step_generator(0, step, device), *banks, 1, 32, 25)
+        for k, v in want.items():
+            assert torch.equal(runner.batch[k], v), (step, k)
+    assert runner.replays == 4
+
+
+def _moment_errors(got, want, names):
+    """Per leaf ||got - want|| over the leaf's norm or, for a bias, its
+    layer's largest leaf norm (a bias ahead of an InstanceNorm has a
+    gradient of rounding noise)."""
+    norms = {n: want[n].norm().item() for n in names}
+    layer = {}
+    for n in names:
+        layer[n.rsplit(".", 1)[0]] = max(layer.get(n.rsplit(".", 1)[0], 0.0), norms[n])
+    return {n: (got[n] - want[n]).norm().item()
+            / max(layer[n.rsplit(".", 1)[0]] if n.endswith("bias") else norms[n], 1e-30)
+            for n in names}
+
+
+def _first_moments(state, side):
+    models, opt = (state.g, state.g_opt) if side == "g" else (state.d, state.d_opt)
+    return {f"{m}.{n}": opt.state[p]["exp_avg"] for m, model in models.items()
+            for n, p in model.named_parameters() if p in opt.state}
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_graph_trajectory_matches_eager(device, remat):
+    """Six steps: the identity variant's first eagerly, then two replays;
+    past the cutoff the other variant's first eagerly, then two replays."""
+    cfg, banks = _tiny_training(device, remat)
+    eager = create_train_state(cfg, 0, device)
+    graphed = create_train_state(cfg, 0, device, capturable=True)
+    steps = {wi: make_train_step(cfg, wi) for wi in (True, False)}
+    cutoff = cfg.schedule.stop_identity_after
+    want = []
+    for step in range(6):
+        batch = sample_batch(step_generator(0, step, device), *banks, 1, 32, 25)
+        _, m = steps[step <= cutoff](eager, batch)
+        want.append([m[k].item() for k in LOGGED_METRICS])
+    runner = _runner(cfg, banks, graphed)
+    got = runner.run(graphed, 6).cpu().tolist()
+    assert runner.replays == 4 and graphed.step == eager.step == 6
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+    for side in ("g", "d"):
+        a, b = _first_moments(graphed, side), _first_moments(eager, side)
+        assert a.keys() == b.keys()
+        errs = _moment_errors(a, b, list(b))
+        assert max(errs.values()) < MOMENT_BOUND[side], max(errs.items(), key=lambda e: e[1])

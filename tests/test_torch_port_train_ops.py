@@ -9,7 +9,11 @@ custom_vjps (interpret mode: ``instance_norm_fused``,
 forwards run the plain versions on the CPU and whose backwards are the
 same code the card runs (K5's plain version stands in for the kernel).
 The Functions are also held against torch autograd through the plain
-forwards, and K5's plain version against ``_sis_bwd_xla``. Tolerance
+forwards, and K5's plain version against ``_sis_bwd_xla``. Past the
+per-sample budget both packages take the split backward (the inverse
+shuffle K6, then the gradient from one-pass statistics): the port's against
+``_sis_bwd_xla`` and the dispatch against JAX's, both budgets patched low,
+and the budget's byte count against JAX's at the full width. Tolerance
 atol = rtol = 1e-5: f32 on both sides, the same formulas, statistics and
 sums taken in another order (the JAX pixel-shuffle kernel's statistics
 are one-pass, the port's two-pass).
@@ -28,6 +32,7 @@ from maskcyclegan_vc_tpu.ops.pallas.in_gate_kernel import (
     instance_norm_glu_fused,
     instance_norm_swish_fused,
 )
+from maskcyclegan_vc_tpu.ops.pallas import ps_kernel
 from maskcyclegan_vc_tpu.ops.pallas.ps_kernel import _sis_bwd_xla, subpixel_in_swish
 from maskcyclegan_vc_tpu_torch.ops import in_gate, ps
 from maskcyclegan_vc_tpu_torch.ops.in_gate import (
@@ -41,7 +46,9 @@ from maskcyclegan_vc_tpu_torch.ops.in_gate import (
 from maskcyclegan_vc_tpu_torch.ops.ps import (
     pixel_shuffle_in_swish,
     pixel_shuffle_in_swish_backward,
+    pixel_shuffle_in_swish_backward_bytes,
     pixel_shuffle_in_swish_backward_plain,
+    pixel_shuffle_in_swish_backward_split,
     pixel_shuffle_in_swish_plain,
     pixel_shuffle_stats_plain,
 )
@@ -236,12 +243,100 @@ def test_backward_takes_a_noncontiguous_cotangent():
         torch.testing.assert_close(a, w, **TOL)
 
 
+@pytest.mark.parametrize("B,C,H,W", [(2, 8, 4, 6), (1, 4, 3, 7)])
+def test_split_backward_matches_jax_xla_backward(B, C, H, W):
+    """The split route: K6 (its plain version here) on dy, then the gradient
+    from statistics recomputed from x, against ``_sis_bwd_xla``."""
+    x, s, b, dy = _ps_inputs(6, B, C, H, W)
+    want = _sis_bwd_xla(jnp.asarray(_q_major_nhwc(x)), jnp.asarray(dy.transpose(0, 2, 3, 1)),
+                        jnp.asarray(s), jnp.asarray(b), True)
+    got = pixel_shuffle_in_swish_backward_split(*(torch.from_numpy(a) for a in (x, dy, s, b)))
+    np.testing.assert_allclose(got[0].numpy(), _from_q_major_nhwc(np.asarray(want[0])), **TOL)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), **TOL)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), **TOL)
+
+
+def _routes(monkeypatch):
+    """Count the port's backward routes: {"fused": n, "split": n}."""
+    taken = {"fused": 0, "split": 0}
+    for name, route in (("pixel_shuffle_in_swish_backward", "fused"),
+                        ("pixel_shuffle_in_swish_backward_split", "split")):
+        real = getattr(ps, name)
+
+        def spy(*args, _real=real, _route=route):
+            taken[_route] += 1
+            return _real(*args)
+        monkeypatch.setattr(ps, name, spy)
+    return taken
+
+
+@pytest.mark.parametrize("budget", ["patched", "default"])
+def test_backward_route_follows_the_budget(monkeypatch, budget):
+    """With both budgets below one sample, the port's gradient takes the
+    split route and equals jax.vjp of ``subpixel_in_swish``, whose backward
+    then takes ``_sis_bwd_xla``; at the default budget both take the fused
+    route (K5, ``_sis_bwd_pallas``)."""
+    x, s, b, dy = _ps_inputs(7, 2, 4, 3, 5)
+    taken = _routes(monkeypatch)
+    jax_split = []
+    real_xla = ps_kernel._sis_bwd_xla
+    monkeypatch.setattr(ps_kernel, "_sis_bwd_xla",
+                        lambda *a: jax_split.append(1) or real_xla(*a))
+    if budget == "patched":
+        monkeypatch.setattr(ps, "BWD_BUDGET_BYTES", pixel_shuffle_in_swish_backward_bytes(
+            torch.from_numpy(x)) - 1)
+        monkeypatch.setattr(ps_kernel, "_BWD_VMEM_BUDGET", 0)
+    want = _jvp(lambda x, s, b: subpixel_in_swish(x, s, b, True),
+                [_q_major_nhwc(x), s, b], dy.transpose(0, 2, 3, 1))
+    got = _torch_grads(pixel_shuffle_in_swish, [torch.from_numpy(a) for a in (x, s, b)],
+                       torch.from_numpy(dy))
+    split = budget == "patched"
+    assert taken == {"fused": int(not split), "split": int(split)}
+    assert len(jax_split) == int(split)
+    np.testing.assert_allclose(got[0].numpy(), _from_q_major_nhwc(want[0]), **TOL)
+    np.testing.assert_allclose(got[1].numpy(), want[1], **TOL)
+    np.testing.assert_allclose(got[2].numpy(), want[2], **TOL)
+
+
+def _upsample_inputs(frames: int):
+    """The full-width generator's two upsample conv outputs, per sample, at
+    ``frames``: (4C, H, W) of upSample1 and upSample2 (80 mels, R = 256; two
+    stride-2 convs take W to ceil(ceil(T / 2) / 2))."""
+    w = -(-(-(-frames // 2)) // 2)
+    return (1024, 20, w), (512, 40, 2 * w)
+
+
+@pytest.mark.parametrize("batch,frames,split", [(1, 128, (False, False)),
+                                                (32, 128, (False, False)),
+                                                (1, 136, (False, False)),
+                                                (1, 137, (False, True)),
+                                                (1, 192, (False, True)),
+                                                (1, 272, (False, True)),
+                                                (1, 273, (True, True)),
+                                                (2, 320, (True, True))])
+def test_backward_budget_bytes_match_jax(batch, frames, split):
+    """``pixel_shuffle_in_swish_backward_bytes`` against ``_sis_bwd_vmem_bytes``
+    on the full-width shapes, and which of the two upsample stages pass the
+    budget (upSample2 from 137 frames, upSample1 from 273, where W = 69 first
+    makes 6 x 4 x 1024 x 20 x W bytes exceed 32 MiB; the 32 x 128 shape stays
+    under it)."""
+    for (C4, H, W), want_split in zip(_upsample_inputs(frames), split):
+        x = torch.empty((batch, C4, H, W), device="meta")
+        jx = jax.ShapeDtypeStruct((batch, H, W, C4), jnp.float32)
+        jdy = jax.ShapeDtypeStruct((batch, 2 * H, 2 * W, C4 // 4), jnp.float32)
+        got = pixel_shuffle_in_swish_backward_bytes(x)
+        assert got == ps_kernel._sis_bwd_vmem_bytes(jx, jdy)
+        assert ps.BWD_BUDGET_BYTES == ps_kernel._BWD_VMEM_BUDGET
+        assert (got > ps.BWD_BUDGET_BYTES) == want_split, (frames, C4)
+
+
 def test_cpu_gradients_launch_no_kernel():
     counters = (in_gate.IN_KERNEL, in_gate.IN_SWISH_KERNEL, in_gate.IN_GLU_KERNEL,
-                ps.PS_IN_SWISH_KERNEL, ps.PS_IN_SWISH_BWD_KERNEL)
+                ps.PS_IN_SWISH_KERNEL, ps.PS_IN_SWISH_BWD_KERNEL, ps.INV_SHUFFLE_KERNEL)
     before = [c.launches for c in counters]
     x, s, b, dy = (torch.from_numpy(a) for a in _ps_inputs(5, 1, 4, 3, 5))
     _torch_grads(pixel_shuffle_in_swish, [x, s, b], dy)
+    pixel_shuffle_in_swish_backward_split(x, dy, s, b)
     h = torch.randn(1, 8, 3, 5)
     for fn, vecs in ((instance_norm, 2), (instance_norm_swish, 2)):
         _torch_grads(fn, [h] + [torch.ones(8)] * vecs, torch.ones_like(h))

@@ -177,6 +177,67 @@ def test_jax_conversion_cli_reads_the_ports_checkpoint(trained, corpus):
         np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
+# ---------- --scan_epochs ----------
+
+def _run_phases(corpus, name, *phases):
+    """The CLI with the identity terms off from step 7 (inside epoch 2), one
+    call per (num_epochs, scan_epochs) phase, each after the first resumed."""
+    for i, (epochs, scan) in enumerate(phases):
+        train_main(_args(corpus, name, "--num_epochs", str(epochs), "--scan_epochs", str(scan),
+                         "--stop_identity_after", "6", "--epochs_per_plot", "100",
+                         *(["--continue_train"] if i else [])))
+    return corpus / "results" / name
+
+
+@pytest.fixture(scope="module")
+def mode_runs(corpus):
+    """3 epochs a step at a time; 2 epochs of scan then a step at a time to 3;
+    1 epoch a step at a time then scan to 3."""
+    return {"step": _run_phases(corpus, "mode_step", (3, 0)),
+            "scan_step": _run_phases(corpus, "mode_scan_step", (2, 1), (3, 0)),
+            "step_scan": _run_phases(corpus, "mode_step_scan", (1, 0), (3, 1))}
+
+
+def _checkpoint(run, epoch: int):
+    with np.load(run / "ckpts" / f"{epoch:05d}_state.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def _logged_steps(run):
+    """Each step's logged line without its ms/it."""
+    return [line.rsplit(" (", 1)[0] for line in open(run / f"{run.name}.log")
+            if line.startswith("[epoch")]
+
+
+def _assert_same_checkpoint(a: dict, b: dict):
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_scan_epochs_match_step_at_a_time(mode_runs):
+    """Two epochs with --scan_epochs 1 log the same losses and write the same
+    checkpoints as with --scan_epochs 0: the same batches (the generator
+    reseeded for each step), the same updates, the identity variant switched
+    at the same step."""
+    step, scan = mode_runs["step"], mode_runs["scan_step"]
+    lines = _logged_steps(step)
+    assert _logged_steps(scan)[:8] == lines[:8]
+    assert "g_identity_loss: 0.00000" in lines[7] and "g_identity_loss: 0.00000" not in lines[6]
+    for epoch in (1, 2):
+        _assert_same_checkpoint(_checkpoint(scan, epoch), _checkpoint(step, epoch))
+    for run, want in ((step, False), (scan, False), (mode_runs["step_scan"], True)):
+        with open(run / "train_args.json") as f:
+            assert json.load(f)["scan_epochs"] is want  # the last call's
+
+
+@pytest.mark.parametrize("order", ["scan_step", "step_scan"])
+def test_resume_across_modes_equals_uninterrupted(mode_runs, order):
+    run, step = mode_runs[order], mode_runs["step"]
+    assert _logged_steps(run) == _logged_steps(step)
+    _assert_same_checkpoint(_checkpoint(run, 3), _checkpoint(step, 3))
+
+
 def test_cuda_without_a_gpu_raises(corpus, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
@@ -185,24 +246,25 @@ def test_cuda_without_a_gpu_raises(corpus, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--dtype", "float32"], ["--fused_norms", "1"],
-                                  ["--scan_epochs", "0"], ["--distributed"],
-                                  ["--grad_allreduce_dtype", "float32"],
+                                  ["--distributed"], ["--grad_allreduce_dtype", "float32"],
                                   ["--precision", "highest"]])
 def test_unported_flags_are_rejected(corpus, flag):
     with pytest.raises(SystemExit):
         train_main(_args(corpus, "flags", "--num_epochs", "1") + flag)
 
 
-def test_nan_at_a_middle_step_is_caught_after_logging_and_flushing(corpus):
-    """The three round-5 trainer defects are absent: a non-finite loss at a
-    middle step of an epoch (not its last) stops the run; that epoch's
-    per-step values are in the log first; the checkpoint write in flight is
-    flushed and the logger closed on the way out."""
-    args = TrainerArgs(name="nan", save_dir=str(corpus / "results"),
+@pytest.mark.parametrize("scan", [False, True])
+def test_nan_at_a_middle_step_is_caught_after_logging_and_flushing(corpus, scan):
+    """The three round-5 trainer defects are absent, in both modes: a
+    non-finite loss at a middle step of an epoch (not its last) stops the
+    run; that epoch's per-step values are in the log first; the checkpoint
+    write in flight is flushed and the logger closed on the way out."""
+    name = f"nan_scan{int(scan)}"
+    args = TrainerArgs(name=name, save_dir=str(corpus / "results"),
                        preprocessed_data_dir=str(corpus / "pre"), num_epochs=3,
                        batch_size=1, num_frames=FRAMES, n_mels=N_MELS, residual_channels=R,
                        epochs_per_save=1, epochs_per_plot=100, steps_per_print=100,
-                       device="cpu")
+                       scan_epochs=scan, device="cpu")
     trainer = Trainer(args)
     real = trainer.step_fn
     bad_step = len(LENGTHS) + 2  # the second step of epoch 2, of 4
@@ -212,39 +274,40 @@ def test_nan_at_a_middle_step_is_caught_after_logging_and_flushing(corpus):
         if step + 1 != bad_step:
             return fn
 
-        def run(state, batch):
-            state, m = fn(state, batch)
-            return state, dict(m, g_loss=torch.tensor(float("nan")))
+        def run(state, batch, lam_id):
+            return dict(fn(state, batch, lam_id), g_loss=torch.tensor(float("nan")))
         return run
 
     trainer.step_fn = poisoned
     with pytest.raises(FloatingPointError, match=f"step {bad_step}"):
         trainer.train()
     assert trainer._saver._thread is None and trainer.logger.tb is None
-    log = open(corpus / "results" / "nan" / "nan.log").read().splitlines()
+    log = open(corpus / "results" / name / f"{name}.log").read().splitlines()
     epoch2 = [line for line in log if line.startswith("[epoch 2 step")]
     assert len(epoch2) == len(LENGTHS)
     assert "g_loss: nan" in epoch2[1] and "nan" not in epoch2[-1]
-    ckpts = sorted(os.path.basename(p) for p in glob.glob(str(corpus / "results" / "nan" / "ckpts" / "*")))
+    ckpts = sorted(os.path.basename(p) for p in glob.glob(str(corpus / "results" / name / "ckpts" / "*")))
     assert ckpts == ["00001_state.npz"]
-    with np.load(corpus / "results" / "nan" / "ckpts" / "00001_state.npz") as z:
+    with np.load(corpus / "results" / name / "ckpts" / "00001_state.npz") as z:
         assert int(z[".step"]) == len(LENGTHS)
 
 
-def test_finite_check_params_refuses_to_save_a_poisoned_state(corpus):
-    args = TrainerArgs(name="params", save_dir=str(corpus / "results"),
+@pytest.mark.parametrize("scan", [False, True])
+def test_finite_check_params_refuses_to_save_a_poisoned_state(corpus, scan):
+    name = f"params_scan{int(scan)}"
+    args = TrainerArgs(name=name, save_dir=str(corpus / "results"),
                        preprocessed_data_dir=str(corpus / "pre"), num_epochs=1,
                        batch_size=1, num_frames=FRAMES, n_mels=N_MELS, residual_channels=R,
                        epochs_per_save=1, epochs_per_plot=100, finite_check="params",
-                       device="cpu")
+                       scan_epochs=scan, device="cpu")
     trainer = Trainer(args)
     with torch.no_grad():
         trainer.state.g["A2B"].conv1.bias[0] = float("inf")
-    trainer.step_fn = lambda step: (lambda state, batch: (state, {
-        k: torch.zeros(()) for k in LOGGED_METRICS}))
+    trainer.step_fn = lambda step: (lambda state, batch, lam_id: {
+        k: torch.zeros(()) for k in LOGGED_METRICS})
     with pytest.raises(FloatingPointError, match="A2B"):
         trainer.train()
-    assert not glob.glob(str(corpus / "results" / "params" / "ckpts" / "*"))
+    assert not glob.glob(str(corpus / "results" / name / "ckpts" / "*"))
 
 
 # ---------- audio at plot cadence ----------
