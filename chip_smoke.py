@@ -40,21 +40,36 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               share of each, and the replays' batches held bit for bit
               against the eager sampler's), each step's launch counts, peak
               memory and a profiler breakdown.
-7. long crops the train CLI at --num_frames 192 for one epoch, where each
+7. train bf16 the same CLI run as 6 with --dtype bfloat16: launches per
+              replayed step on the bf16 entries of K1-K5 only (the plot's
+              two conversions stay f32), losses within 0.15 relative of 6's
+              at every step, a checkpoint of f32 arrays that the conversion
+              CLI reads on the card; then one epoch with --fused_norms 0,
+              which launches no kernel. ms/step, audio-s/s, device-busy
+              share and profile in bf16 at both sizes as in 6, and in f32
+              with --precision tensorfloat32 (TF32 convolutions) at 1 x 64
+              as graph replays and at 32 x 128 a step at a time.
+8. long crops the train CLI at --num_frames 192 for one epoch, where each
               step's upSample2 backwards take the split route (K6, then
               eager PyTorch) and its upSample1 backwards K5, with the launch
               counts of the run; one step at 1 x 320, where both stages
               split: ms/step, its kernel sites, and at one upSample2 site the
-              split route against K5 on the same (x, dy), both timed.
-8. kernels    each kernel against its plain PyTorch version on the card, with
+              split route against K5 on the same (x, dy), both timed. In
+              bf16, whose bytes are half, the CLI at --num_frames 320 for one
+              epoch and one 1 x 320 step: upSample2 splits (bf16 K6) and
+              upSample1 takes K5, as pixel_shuffle_in_swish_backward_bytes
+              predicts.
+9. kernels    each kernel against its plain PyTorch version on the card, with
               its time, the plain version's, the library call's where one
               exists, and its bound: K1-K5 at every call site recorded in one
               431-frame conversion (unmasked and with the call's lengths) and
               in one training step at each size (unmasked and with lengths
               one frame short), the fused backward also against autograd; K6
               and K7 (exact) at every inverse-shuffle site of the 1 x 320
-              step; K8 on the audio of every bucket the preprocess phase ran;
-              K9 on the four stage inputs of one real 431-frame decode.
+              step; the bf16 entries of K1-K7 likewise at the sites of the
+              bf16 steps; K8 on the audio of every bucket the preprocess
+              phase ran; K9 on the four stage inputs of one real 431-frame
+              decode.
 
 The last three lines are the kernels' JSON record, the card as nvidia-smi
 names it, and {"ok": true, "device": {...}}. Working files go to
@@ -104,7 +119,7 @@ from maskcyclegan_vc_tpu_torch.train.graphs import StepRunner
 from maskcyclegan_vc_tpu_torch.train.schedules import ScheduleConfig
 from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, create_train_state
 from maskcyclegan_vc_tpu_torch.train.step import LOGGED_METRICS, make_train_step, make_update
-from maskcyclegan_vc_tpu_torch.utils.device import resolve_device
+from maskcyclegan_vc_tpu_torch.utils.device import precision_scope, resolve_device
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -112,6 +127,15 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12    # H100 SXM, f32 outside the tensor cores
 TOL = dict(atol=1e-5, rtol=1e-5)  # kernel vs plain, f32: reduction order only
+# Kernel vs plain in bf16: both compute in f32 from the same bf16 inputs and
+# round once, so they are at most one bf16 rounding apart (2**-7 of the
+# value), atol 1e-5 for values that f32 cancellation leaves near 0. K5's dx
+# two roundings (``k5_dx_bound``). f32 outputs (statistics, dscale, dbias)
+# as in f32.
+TOL_BF16 = dict(atol=1e-5, rtol=2 ** -7)
+# bf16 losses against f32's on the same seed and steps: the bound of the JAX
+# package's own bf16 pin (tests/test_bf16_dynamics.py).
+BF16_LOSS_RTOL = 0.15
 N_PARAMS = 24_537_729
 N_PARAMS_D, N_PARAMS_D_LIVE = 16_691_713, 6_202_881
 HOP, SAMPLE_RATE = 256, 22050
@@ -120,17 +144,38 @@ PER_FORWARD = {"in_glu": 8, "in": 8, "ps_in_swish": 2}
 # One training step at batch 1 (pair_forwards on, identity on): 6 G
 # forwards, 3 with grad, and 8 D forwards; at batch 32 (pair_forwards
 # off): 10 G forwards, 6 with grad, and 12 D forwards. Each G forward with
-# grad runs two upsample backwards: K5 for a stage whose per-sample block is
-# within the budget, else the split route (one K6): at 192 frames upSample1
-# takes K5 and upSample2 splits; at 320 frames both split.
-PER_STEP = {(1, 64): {"in_glu": 48, "in": 48, "in_swish": 24, "ps_in_swish": 12,
-                      "ps_in_swish_bwd": 6},
-            (32, 128): {"in_glu": 80, "in": 80, "in_swish": 36, "ps_in_swish": 20,
-                        "ps_in_swish_bwd": 12},
-            (1, 192): {"in_glu": 48, "in": 48, "in_swish": 24, "ps_in_swish": 12,
-                       "ps_in_swish_bwd": 3, "inv_shuffle": 3},
-            (1, 320): {"in_glu": 48, "in": 48, "in_swish": 24, "ps_in_swish": 12,
-                       "inv_shuffle": 6}}
+# grad runs two upsample backwards (``per_step``).
+G_FORWARDS = {1: (6, 3, 8), 32: (10, 6, 12)}  # G forwards, of them with grad, D forwards
+
+
+def per_step(batch: int, frames: int, dtype=torch.float32) -> dict:
+    """The launches of one training step at the published width, by entry.
+    Each upsample backward takes K5 where its stage's per-sample block is
+    within the budget, else the split route (one K6), as
+    ``pixel_shuffle_in_swish_backward_bytes`` decides at ``dtype``: in f32
+    at 64 and 128 frames both stages take K5, at 192 upSample2 splits, at
+    320 both split; in bf16, whose bytes are half, at 320 only upSample2."""
+    n_g, n_grad, n_d = G_FORWARDS[batch]
+    out = {"in_glu": 8 * n_g, "in": 8 * n_g, "in_swish": 3 * n_d, "ps_in_swish": 2 * n_g}
+    w2 = -(-(-(-frames // 2)) // 2)
+    for shape in ((1, 1024, 20, w2), (1, 512, 40, 2 * w2)):  # upSample1, upSample2 inputs
+        x = torch.empty(shape, dtype=dtype, device="meta")
+        k = ("inv_shuffle" if ps.pixel_shuffle_in_swish_backward_bytes(x) > ps.BWD_BUDGET_BYTES
+             else "ps_in_swish_bwd")
+        out[k] = out.get(k, 0) + n_grad
+    return entry_names(out, dtype)
+
+
+def entry_name(kernel: str, dtype) -> str:
+    """The KERNELS name of ``kernel``'s entry for ``dtype``: "in_bf16" for
+    "in" in bf16."""
+    return kernel + ("_bf16" if dtype == torch.bfloat16 else "")
+
+
+def entry_names(launches: dict, dtype) -> dict:
+    return {entry_name(k, dtype): n for k, n in launches.items()}
+
+
 # The split route against K5 on the same (x, dy): each output within this
 # fraction of its largest magnitude. The two take the statistics in another
 # way (one-pass from x against the forward's two-pass) and sum in another
@@ -189,25 +234,22 @@ def nvidia_smi() -> str:
 def recording_sites():
     """Record every kernel launch made inside the block as a Site: the
     wrappers' launch points are wrapped for its duration, so the sites are
-    the ones the real call graph produces."""
-    kernel_names = {in_gate.IN_GLU_KERNEL.symbol: "in_glu", in_gate.IN_KERNEL.symbol: "in",
-                    in_gate.IN_SWISH_KERNEL.symbol: "in_swish"}
+    the ones the real call graph produces. A site's kernel is the entry of
+    its input's dtype ("in" or "in_bf16")."""
     sites = {}
 
     def record(kernel, x, lengths):
         if x.device.type == "cuda":
             lens = None if lengths is None else tuple(lengths.tolist())
-            key = (kernel, tuple(x.shape), lens)
+            key = (entry_name(kernel, x.dtype), tuple(x.shape), lens)
             sites.setdefault(key, Site(*key, 0)).count += 1
 
     launch_rows, forward, backward = (in_gate._launch_rows, ps._forward,
                                       ps.pixel_shuffle_in_swish_backward)
     launch_shuffle = ps._launch_shuffle
-    shuffle_names = {ps.SHUFFLE_KERNEL.symbol: "shuffle",
-                     ps.INV_SHUFFLE_KERNEL.symbol: "inv_shuffle"}
 
     def rec_launch_rows(kernel, x, vecs, lengths, out_channels):
-        record(kernel_names[kernel.symbol], x, lengths)
+        record(kernel, x, lengths)
         return launch_rows(kernel, x, vecs, lengths, out_channels)
 
     def rec_forward(x, scale, bias, lengths=None, stats=False):
@@ -219,7 +261,7 @@ def recording_sites():
         return backward(x, dy, *args)
 
     def rec_launch_shuffle(kernel, src):
-        record(shuffle_names[kernel.symbol], src, None)
+        record(kernel, src, None)
         return launch_shuffle(kernel, src)
 
     in_gate._launch_rows, ps._forward = rec_launch_rows, rec_forward
@@ -297,6 +339,7 @@ KERNELS = {
     "in": dict(
         counter=in_gate.IN_KERNEL, fn=in_gate.instance_norm,
         plain=in_gate.instance_norm_plain, n_vecs=2,
+        # On bf16 x with the f32 vectors: batch norm's mixed-dtype form.
         library=lambda x, s, b: F.instance_norm(x, weight=s, bias=b, eps=1e-5),
         source="maskcyclegan_vc_tpu_torch/csrc/in_gate.cu",
         replaces="maskcyclegan_vc_tpu/ops/pallas/in_gate_kernel.py:127 (instance_norm_fused :152)",
@@ -340,30 +383,46 @@ KERNELS = {
         source="maskcyclegan_vc_tpu_torch/csrc/melgan_stack.cu",
         replaces="maskcyclegan_vc_tpu/ops/pallas/melgan_stack_kernel.py:362 (melgan_resstack, body _stage_kernel :137)"),
 }
+# The bf16 entries (``--dtype bfloat16``): the same functions, plain
+# versions, sources and TPU kernels, each entry with its own launch count.
+for _name, _entries in (*in_gate.ENTRIES.items(), *ps.ENTRIES.items()):
+    KERNELS[f"{_name}_bf16"] = dict(KERNELS[_name], counter=_entries[torch.bfloat16],
+                                    dtype=torch.bfloat16)
 NORM_KERNELS = ("in_glu", "in", "in_swish", "ps_in_swish", "ps_in_swish_bwd")
 
 
+def dtype_of(kernel: str) -> torch.dtype:
+    return KERNELS[kernel].get("dtype", torch.float32)
+
+
+def base_name(kernel: str) -> str:
+    return kernel.removesuffix("_bf16")
+
+
 def out_shape(kernel: str, shape: tuple) -> tuple:
-    if kernel == "in_glu":
+    if base_name(kernel) == "in_glu":
         return (shape[0], shape[1] // 2) + shape[2:]
-    if kernel == "ps_in_swish":
+    if base_name(kernel) == "ps_in_swish":
         return (shape[0], shape[1] // 4, 2 * shape[2], 2 * shape[3])
     return shape
 
 
 def bound_ms(kernel: str, shape: tuple, n_vecs: int):
     """The least time for the work: each input read once, each output
-    written once, over the memory rate; or the flops over the f32 rate.
-    The fused backward reads x and dy and writes dx (three tensors of x's
-    size) plus the per-sample statistics in and dscale, dbias out."""
+    written once, over the memory rate; or the flops over the f32 rate (the
+    bf16 entries compute in f32 too). x, y, dy and dx take the entry's
+    element size (2 bytes in bf16), the vectors and statistics 4. The fused
+    backward reads x and dy and writes dx (three tensors of x's size) plus
+    the per-sample statistics in and dscale, dbias out."""
     n_in = int(np.prod(shape))
     C = out_shape(kernel, shape)[1]
-    if kernel == "ps_in_swish_bwd":
+    esize = torch.finfo(dtype_of(kernel)).bits // 8
+    if base_name(kernel) == "ps_in_swish_bwd":
         n_out, C = n_in, C // 4
-        nbytes = 4 * (3 * n_in + n_vecs * C + 4 * shape[0] * C)
+        nbytes = esize * 3 * n_in + 4 * (n_vecs * C + 4 * shape[0] * C)
     else:
         n_out = int(np.prod(out_shape(kernel, shape)))
-        nbytes = 4 * (n_in + n_out + n_vecs * C)
+        nbytes = esize * (n_in + n_out) + 4 * n_vecs * C
     flops = KERNELS[kernel]["flops_per_out"] * n_out
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -415,9 +474,10 @@ def device_ms(fn, reps: int = 20, replays: int = 5) -> float:
 def _inputs(site: Site, device, gen):
     spec = KERNELS[site.kernel]
     C = out_shape(site.kernel, site.shape)[1]
-    if site.kernel == "ps_in_swish_bwd":
+    if base_name(site.kernel) == "ps_in_swish_bwd":
         C = site.shape[1] // 4
-    x = torch.randn(site.shape, device=device, generator=gen) * 2.0 + 0.5
+    x = (torch.randn(site.shape, device=device, generator=gen) * 2.0 + 0.5).to(
+        dtype_of(site.kernel))
     vecs = []
     for i in range(spec["n_vecs"]):
         v = torch.rand(C, device=device, generator=gen)
@@ -430,7 +490,7 @@ def site_lengths(site: Site, device) -> torch.Tensor:
     time axis (for K4 the shuffled axis, 2W wide)."""
     if site.lengths is not None:
         return torch.tensor(site.lengths, dtype=torch.int32, device=device)
-    full = site.shape[-1] * (2 if site.kernel == "ps_in_swish" else 1)
+    full = site.shape[-1] * (2 if base_name(site.kernel) == "ps_in_swish" else 1)
     return torch.full((site.shape[0],), full - 1, dtype=torch.int32, device=device)
 
 
@@ -440,45 +500,72 @@ def check_forward(site: Site, x, vecs, device):
     spec = KERNELS[site.kernel]
     lengths = site_lengths(site, device)
     err = 0.0
-    checks = [(spec["fn"](x, *vecs, lens), spec["plain"](x, *vecs, lens), f"lengths={lens}")
-              for lens in (None, lengths)]
-    if site.kernel == "ps_in_swish":
+    tol = TOL_BF16 if x.dtype == torch.bfloat16 else TOL
+    checks = [(spec["fn"](x, *vecs, lens), spec["plain"](x, *vecs, lens), f"lengths={lens}",
+               tol, x.dtype) for lens in (None, lengths)]
+    if base_name(site.kernel) == "ps_in_swish":
         _, mean, inv = ps.pixel_shuffle_in_swish_with_stats(x, *vecs)
         want_mean, want_inv = ps.pixel_shuffle_stats_plain(x)
-        checks += [(mean, want_mean, "mean"), (inv, want_inv, "inv")]
-    for got, want, what in checks:
+        checks += [(mean, want_mean, "mean", TOL, torch.float32),
+                   (inv, want_inv, "inv", TOL, torch.float32)]
+    for got, want, what, tol, dtype in checks:
         torch.cuda.synchronize()
+        if not got.dtype == want.dtype == dtype:
+            raise AssertionError(f"{site.kernel} {what}: {got.dtype} against {want.dtype}, "
+                                 f"expected {dtype}")
+        got, want = got.float(), want.float()
         e = (got - want).abs().max().item()
-        if not torch.allclose(got, want, **TOL):
+        if not torch.allclose(got, want, **tol):
             raise AssertionError(f"{site.kernel} at {site.shape} {what}: "
-                                 f"max abs err {e:.3g} > {TOL}")
+                                 f"max abs err {e:.3g} > {tol}")
         err = max(err, e)
     return err, lengths
 
 
+def k5_dx_bound(x, dy, s, b, mean, inv, dx):
+    """K5's dx in bf16, elementwise: 1e-5 + 2**-6 max(|dx|, |a dz|). Both
+    sides round dz to bf16 before dx is computed from it (the value K5 parks
+    in dx), and may round it to neighbouring values: that difference reaches
+    dx times a = scale * inv, whatever the size of dx itself. In f32 the
+    bound is TOL's."""
+    if x.dtype != torch.bfloat16:
+        return TOL["atol"] + TOL["rtol"] * dx.abs()
+    B, C4, H, W = x.shape
+    xs = x.float().reshape(B, C4 // 4, -1)
+    a = s[None, :, None] * inv[..., None]
+    z = xs * a + (b[None, :, None] - mean[..., None] * a)
+    sg = torch.sigmoid(z)
+    dys = F.pixel_unshuffle(dy.float(), 2).reshape(xs.shape)
+    a_dz = (a * dys * (sg + z * sg * (1 - sg))).reshape(x.shape)
+    return 1e-5 + 2 ** -6 * torch.maximum(dx.float().abs(), a_dz.abs())
+
+
 def check_backward(site: Site, x, vecs, device, gen):
     """K5 against its plain version and against autograd through the plain
-    forward. dx: atol = rtol = 1e-5. dscale and dbias sum n = 4HW terms per
+    forward. dx: atol = rtol = 1e-5 in f32, ``k5_dx_bound`` in bf16. dscale and dbias sum n = 4HW terms per
     (sample, channel) and again over the batch, in another order than the
     plain version (up to 10,240 terms at 128 frames): f32 summation error
     grows with the sum of the terms' magnitudes, so they are held to 1e-5
     of that sum (with 4|dy| standing for |dz * xhat|)."""
     s, b = vecs
     B, C4, H, W = site.shape
-    dy = torch.randn((B, C4 // 4, 2 * H, 2 * W), device=device, generator=gen)
+    dy = torch.randn((B, C4 // 4, 2 * H, 2 * W), device=device, generator=gen).to(x.dtype)
     _, mean, inv = ps.pixel_shuffle_in_swish_with_stats(x, s, b)
     got = ps.pixel_shuffle_in_swish_backward(x, dy, s, b, mean, inv)
     want = ps.pixel_shuffle_in_swish_backward_plain(x, dy, s, b, mean, inv)
     xr, sr, br = (t.clone().requires_grad_() for t in (x, s, b))
     auto = torch.autograd.grad(ps.pixel_shuffle_in_swish_plain(xr, sr, br), (xr, sr, br), dy)
     torch.cuda.synchronize()
-    bound = 4e-5 * F.pixel_unshuffle(dy, 2).reshape(B, C4 // 4, -1).abs().sum((0, 2))
+    bound = 4e-5 * F.pixel_unshuffle(dy.float(), 2).reshape(B, C4 // 4, -1).abs().sum((0, 2))
     err, worst = 0.0, 0.0
     for ref, what in ((want, "plain"), (auto, "autograd")):
-        e = (got[0] - ref[0]).abs().max().item()
-        if not torch.allclose(got[0], ref[0], **TOL):
-            raise AssertionError(f"K5 dx at {site.shape} vs {what}: "
-                                 f"max abs err {e:.3g} > {TOL}")
+        if got[0].dtype != x.dtype or ref[0].dtype != x.dtype:
+            raise AssertionError(f"K5 dx {got[0].dtype}, {what} {ref[0].dtype}, x {x.dtype}")
+        diff = (got[0].float() - ref[0].float()).abs()
+        e = diff.max().item()
+        if (diff > k5_dx_bound(x, dy, s, b, mean, inv, ref[0])).any():
+            raise AssertionError(f"K5 dx at {site.shape} {x.dtype} vs {what}: "
+                                 f"max abs err {e:.3g} past its bound")
         err = max(err, e)
         for i in (1, 2):
             ratio = ((got[i] - ref[i]).abs() / bound).max().item()
@@ -499,7 +586,7 @@ def measure_sites(sites, device, label: str):
         x, vecs = _inputs(site, device, gen)
         extra, ms_masked = "", None
         reps = 20 if x.numel() < (1 << 22) else 5  # bounds the graphs' memory
-        if site.kernel == "ps_in_swish_bwd":
+        if base_name(site.kernel) == "ps_in_swish_bwd":
             err, ratio, args = check_backward(site, x, vecs, device, gen)
             ms = device_ms(lambda: ps.pixel_shuffle_in_swish_backward(*args), reps)
             plain_ms = device_ms(lambda: ps.pixel_shuffle_in_swish_backward_plain(*args), reps)
@@ -516,8 +603,10 @@ def measure_sites(sites, device, label: str):
             eager_ms = call_ms(lambda: spec["fn"](x, *vecs))
         b_ms, bound_by = bound_ms(site.kernel, site.shape, spec["n_vecs"])
         masked = "" if site.lengths is None else f"lengths {list(site.lengths)} "
-        print(f"kernels: {label} {site.kernel:15s} in {str(site.shape):22s} {masked}"
-              f"x{site.count} max_abs_err {err:.3g} (tol atol=rtol=1e-5) {extra}"
+        tol = ("atol=rtol=1e-5" if x.dtype == torch.float32 else
+               "one bf16 rounding" if extra == "" else "two bf16 roundings")
+        print(f"kernels: {label} {site.kernel:20s} in {str(site.shape):22s} {masked}"
+              f"x{site.count} max_abs_err {err:.3g} (tol {tol}) {extra}"
               f"ms {ms:.5f} "
               + ("" if ms_masked is None else f"masked_ms {ms_masked:.5f} ")
               + f"eager_call_ms {eager_ms:.5f} plain_ms {plain_ms:.5f} "
@@ -1048,8 +1137,9 @@ def phase_train(device, vocoder_ckpt: str):
     steps = 3 * TRAIN_SPEAKER_UTTERANCES
     # The plot at epoch 2: two conversions, each one generator forward, and
     # its four panels decoded by the vocoder, 4 K9 calls each.
-    want = {k: steps * n + 2 * PER_FORWARD.get(k, 0) for k, n in PER_STEP[(1, 64)].items()}
-    want.update(log_mel=0, melgan_stack=16, inv_shuffle=0, shuffle=0)
+    want = {k: 0 for k in KERNELS}
+    want.update({k: steps * n + 2 * PER_FORWARD.get(k, 0) for k, n in per_step(1, 64).items()})
+    want["melgan_stack"] = 16
     print(f"train: CLI (--scan_epochs 1), 2 epochs {t1 - t0:.1f} s, resumed to epoch 3 "
           f"{t2 - t1:.1f} s (state creation, captures, checkpoint writes and reads included); "
           f"launches {launches} (expected {want}: {steps} steps, 2 plot conversions, 4 panels "
@@ -1101,15 +1191,111 @@ def phase_train(device, vocoder_ckpt: str):
           f"{rel_det.max():.3g} over the run", flush=True)
     if got.shape != ref.shape or det[0].shape != det[1].shape or rel_det[:3].max() > 1e-5:
         raise AssertionError("the graph run's losses disagree with the eager run's")
-    return launches, pre
+    return launches, pre, args, got
 
 
-def train_setup(pre: str, batch: int, frames: int, device):
+def phase_train_bf16(device, pre: str, args: list, f32_losses: np.ndarray):
+    """The slice's main path in bf16: phase_train's CLI run (``args``) with
+    --dtype bfloat16, 2 epochs as graph replays, then resumed to 3. Every
+    captured step launches the bf16 entries of K1-K5 alone, and so do the
+    run's eager first steps (its totals); the plot's two conversions run
+    the f32 entries, as the JAX trainer converts in f32. g and d losses
+    within BF16_LOSS_RTOL of the f32 run's at every step. The checkpoint
+    holds f32 arrays and the conversion CLI reads it on the card. Then one
+    epoch with --fused_norms 0, which launches no kernel. Returns the run's
+    launches."""
+    save = args[args.index("--save_dir") + 1]
+    argv = args + ["--name", "smoke_bf16", "--dtype", "bfloat16"]
+    reset_counts()
+    with graph_accounting() as acct, capturing(TrainLogger, "log_iter") as log:
+        t0 = time.perf_counter()
+        train_main(argv + ["--num_epochs", "2"])
+        t1 = time.perf_counter()
+        train_main(argv + ["--num_epochs", "3", "--continue_train"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches = run_launches(acct)
+    steps = 3 * TRAIN_SPEAKER_UTTERANCES
+    step_want = per_step(1, 64, torch.bfloat16)
+    want = {k: 0 for k in KERNELS}
+    want.update({k: steps * n for k, n in step_want.items()})
+    want.update({k: 2 * n for k, n in PER_FORWARD.items()})  # the plot's f32 conversions
+    want["melgan_stack"] = 16
+    captured = {k: acct["captures"] * n for k, n in step_want.items()}
+    print(f"train bf16: CLI --dtype bfloat16 (--scan_epochs 1), 2 epochs {t1 - t0:.1f} s, "
+          f"resumed to epoch 3 {t2 - t1:.1f} s; launches {launches} (expected {want}: "
+          f"{steps} steps on the bf16 entries, 2 f32 plot conversions, 4 panels decoded); "
+          f"{accounting_line(acct)}", flush=True)
+    if launches != want or acct["at_capture"] != captured or acct["replays"] != steps - 2:
+        raise AssertionError("the bf16 run did not launch the bf16 entries alone")
+
+    got = np.array(logged_losses(log))
+    if got.shape != f32_losses.shape or not np.isfinite(got).all():
+        raise AssertionError(f"bf16 losses {got.shape}, finite {np.isfinite(got).all()}")
+    rel = np.abs(got - f32_losses) / np.abs(f32_losses)
+    gaps = {k: float(rel[:, i].max()) for i, k in enumerate(LOGGED_METRICS)}
+    ig, idl = LOGGED_METRICS.index("g_loss"), LOGGED_METRICS.index("d_loss")
+    print(f"train bf16: {len(got)} steps, every logged loss finite; largest relative gap to "
+          f"the f32 run's losses at the same steps: " + ", ".join(
+              f"{k} {v:.4g}" for k, v in gaps.items())
+          + f" (g_loss and d_loss bound {BF16_LOSS_RTOL}); step 1 g_loss bf16 "
+          f"{got[0, ig]:.5f} f32 {f32_losses[0, ig]:.5f}, last d_loss bf16 {got[-1, idl]:.5f} "
+          f"f32 {f32_losses[-1, idl]:.5f}", flush=True)
+    if max(gaps["g_loss"], gaps["d_loss"]) >= BF16_LOSS_RTOL:
+        raise AssertionError("the bf16 losses left the f32 run's band")
+
+    ckpts = os.path.join(save, "smoke_bf16", "ckpts")
+    with np.load(os.path.join(ckpts, "00003_state.npz")) as z:
+        kinds = {str(z[k].dtype) for k in z.files if z[k].dtype.kind == "f"}
+        step = int(z[".step"])
+    reset_counts()
+    convert_main(["--name", "smoke_bf16_convert", "--save_dir", save, "--preprocessed_data_dir",
+                  pre, "--ckpt_dir", ckpts, "--load_epoch", "3", "--device", "cuda"])
+    out_dir = os.path.join(save, "smoke_bf16_convert", "converted_audio_3")
+    outs = [np.load(os.path.join(out_dir, f)) for f in sorted(os.listdir(out_dir))
+            if "-converted_" in f and f.endswith(".npy")]
+    convert_launches = {k: n for k, n in counts().items() if n}
+    print(f"train bf16: 00003_state.npz holds step {step}, float arrays {sorted(kinds)}; the "
+          f"conversion CLI on the card read it: {len(outs)} utterances, all finite "
+          f"{all(np.isfinite(o).all() for o in outs)}, launches {convert_launches}", flush=True)
+    if kinds != {"float32"} or step != steps or len(outs) != TRAIN_SPEAKER_UTTERANCES \
+            or not all(np.isfinite(o).all() for o in outs) \
+            or set(convert_launches) != set(PER_FORWARD):
+        raise AssertionError("the bf16 run's checkpoint is not the f32 one the CLI reads")
+
+    # --fused_norms 0: the plain versions on the card, the JAX package's
+    # XLA path; nothing launches a kernel.
+    reset_counts()
+    with graph_accounting() as acct, capturing(TrainLogger, "log_iter") as log:
+        train_main(argv + ["--name", "smoke_plain", "--fused_norms", "0", "--num_epochs", "1",
+                           "--epochs_per_save", "100", "--epochs_per_plot", "100"])
+        torch.cuda.synchronize()
+    plain_launches = run_launches(acct)
+    plain = np.array(logged_losses(log))
+    n = len(plain)
+    gap = np.abs(plain - got[:n]) / np.abs(got[:n])
+    print(f"train bf16: --fused_norms 0, one epoch of {n} steps ({acct['replays']} replayed): "
+          f"launches {plain_launches} (none expected); losses finite "
+          f"{bool(np.isfinite(plain).all())}; largest relative gap to the kernels' bf16 run "
+          f"g_loss {gap[:, ig].max():.4g}, d_loss {gap[:, idl].max():.4g}", flush=True)
+    if any(plain_launches.values()) or n != TRAIN_SPEAKER_UTTERANCES \
+            or not np.isfinite(plain).all():
+        raise AssertionError("--fused_norms 0 launched a kernel or went wrong")
+    return launches
+
+
+def train_setup(pre: str, batch: int, frames: int, device, dtype=None, precision=None):
     banks = [MelBank.from_list(load_speaker(pre, sid)[0], frames, device)
              for sid in ("VCC2SF3", "VCC2TF1")]
     sched = ScheduleConfig(n_samples=len(banks[0]), batch_size=batch)
-    cfg = TrainConfig(schedule=sched, num_frames=frames)
+    cfg = TrainConfig(schedule=sched, num_frames=frames, dtype=dtype, precision=precision)
     return cfg, banks
+
+
+def config_name(cfg: TrainConfig) -> str:
+    if cfg.dtype == torch.bfloat16:
+        return "bf16"
+    return "TF32" if cfg.precision == "tensorfloat32" else "f32"
 
 
 def moment_errors(got: dict, want: dict, prefix: str) -> dict:
@@ -1188,67 +1374,83 @@ def phase_cross_step(pre: str, device) -> None:
           f"the CPU step took {t1 - t0:.1f} s", flush=True)
 
 
-def phase_step_timing(pre: str, device, batch: int, frames: int, graph_spans: int = 0):
-    """ms/step of the step function at one size: the median of 20 steps
-    after 5 warm-up steps, host clock around each step ending in a
-    synchronize. The launch counts of one step and its kernel sites, as
-    recorded, peak memory and a profile. With ``graph_spans``, then the same
-    steps as CUDA-graph replays (``step_timing_graphed``)."""
-    cfg, banks = train_setup(pre, batch, frames, device)
+def phase_step_timing(pre: str, device, batch: int, frames: int, graph_spans: int = 0,
+                      dtype=None, precision=None, eager: bool = True):
+    """ms/step of the step function at one size, in ``dtype`` (None: f32)
+    at ``precision`` (``--precision``; None keeps TF32 off). With ``eager``,
+    a step at a time: the median of the steps after the warm-up steps (20
+    after 5 at batch 1, 5 after 2 at batch 32), host clock around each step
+    ending in a synchronize; the launch counts of one step and its kernel
+    sites, as recorded, peak memory and a profile. With ``graph_spans``,
+    the same steps as CUDA-graph replays (``step_timing_graphed``). The
+    config's precision holds for the phase; TF32 is restored after."""
+    cfg, banks = train_setup(pre, batch, frames, device, dtype, precision)
+    with precision_scope(cfg.precision):
+        launches = sites = eager_ms = None
+        if eager:
+            launches, sites, eager_ms = step_timing(cfg, banks, device, batch, frames)
+        if graph_spans:
+            step_timing_graphed(cfg, banks, device, batch, frames, graph_spans, eager_ms)
+    return launches, sites
+
+
+def step_timing(cfg, banks, device, batch: int, frames: int):
+    warm, timed = (5, 20) if batch == 1 else (2, 5)
+    name = config_name(cfg)
     state = create_train_state(cfg, 0, device)
     step = make_train_step(cfg)
     batches = [sample_batch(step_generator(0, i, device), *banks, batch, frames, 25)
-               for i in range(26)]
+               for i in range(warm + timed + 1)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for i in range(25):
+    for i in range(warm + timed):
         t0 = time.perf_counter()
         state, m = step(state, batches[i])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    ms = 1e3 * float(np.median(times[5:]))
+    ms = 1e3 * float(np.median(times[warm:]))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     reset_counts()
     with recording_sites() as sites:
-        state, m = step(state, batches[25])
+        state, m = step(state, batches[-1])
         torch.cuda.synchronize()
     launches = {k: n for k, n in counts().items() if n}
+    want = per_step(batch, frames, cfg.dtype or torch.float32)
     audio_s = batch * frames * HOP / SAMPLE_RATE
-    print(f"train: step at batch {batch} x {frames} frames (pair_forwards "
-          f"{cfg.pair_forwards_resolved()}): {ms:.3f} ms/step (median of 20 after 5 "
-          f"warm-up, host clock; min {1e3 * min(times[5:]):.3f}, max "
-          f"{1e3 * max(times[5:]):.3f}), {audio_s / (ms / 1e3):.2f} audio-s trained per s, "
+    print(f"train: {name} step at batch {batch} x {frames} frames (pair_forwards "
+          f"{cfg.pair_forwards_resolved()}): {ms:.3f} ms/step (median of {timed} after {warm} "
+          f"warm-up, host clock; min {1e3 * min(times[warm:]):.3f}, max "
+          f"{1e3 * max(times[warm:]):.3f}), {audio_s / (ms / 1e3):.2f} audio-s trained per s, "
           f"peak memory {peak:.2f} GiB; launches in one step {launches} "
-          f"(expected {PER_STEP[(batch, frames)]}); losses g {float(m['g_loss']):.4f} "
+          f"(expected {want}); losses g {float(m['g_loss']):.4f} "
           f"d {float(m['d_loss']):.4f}", flush=True)
-    if launches != PER_STEP[(batch, frames)] or site_counts(sites) != launches:
+    if launches != want or site_counts(sites) != launches:
         raise AssertionError(f"one step at batch {batch} x {frames} launched {launches}, "
                              f"recorded {site_counts(sites)}")
     if not all(np.isfinite(float(v)) for v in m.values()):
         raise AssertionError(f"non-finite metrics at batch {batch}: {m}")
     profile(lambda: step(state, batches[0]), ms / 1e3,
-            f"one training step at batch {batch} x {frames}")
+            f"one {name} training step at batch {batch} x {frames}")
     del state, batches
     torch.cuda.empty_cache()
-    if graph_spans:
-        step_timing_graphed(cfg, banks, device, batch, frames, graph_spans, ms)
-    return launches, sites
+    return launches, sites, ms
 
 
 def step_timing_graphed(cfg, banks, device, batch: int, frames: int, spans: int,
-                        eager_ms: float) -> None:
+                        eager_ms=None) -> None:
     """ms/step with each step a CUDA-graph replay (--scan_epochs 1's
-    runner): spans of steps with no host synchronisation inside, each
-    timed as its wall time (host clock, ending in a synchronize) over its
-    steps; the median span. Before that, the first 4 steps one at a time:
-    the batches drawn inside the replays against the eager sampler's, bit
-    for bit. Then the launches per replayed step, and a profile of a span."""
+    runner): spans of steps (20 at batch 1, 2 at batch 32) with no host
+    synchronisation inside, each timed as its wall time (host clock, ending
+    in a synchronize) over its steps; the median span. Before that, the
+    first 4 steps one at a time: the batches drawn inside the replays
+    against the eager sampler's, bit for bit. Then the launches per
+    replayed step, and a profile of 5 replayed steps (1 at batch 32)."""
     state = create_train_state(cfg, 0, device, capturable=True)
     update = make_update(cfg)
     runner = StepRunner(cfg, lambda step: update, *banks, 0, batch, frames, 25)
     equal = []
-    n = 20 if batch == 1 else 4
+    n = 20 if batch == 1 else 2
     with graph_accounting() as acct:
         for step in range(4):  # step 0 runs eagerly and captures; 1-3 replay
             runner.run(state, 1)
@@ -1256,12 +1458,14 @@ def step_timing_graphed(cfg, banks, device, batch: int, frames: int, spans: int,
             equal.append(all(torch.equal(runner.batch[k], v) for k, v in want.items()))
         runner.run(state, n)
         torch.cuda.synchronize()
-    print(f"train: {batch} x {frames} graph replays: batches of steps 0-3 (step 0 eager, "
+    name = config_name(cfg)
+    want = per_step(batch, frames, cfg.dtype or torch.float32)
+    print(f"train: {name} {batch} x {frames} graph replays: batches of steps 0-3 (step 0 eager, "
           f"1-3 replayed) bit-equal to sample_batch(step_generator(0, step)): {equal}",
           flush=True)
     if not all(equal):
         raise AssertionError("a replay drew another batch than the eager sampler")
-    per_step = {k: v // acct["replays"] for k, v in acct["replayed"].items() if v}
+    replayed = {k: v // acct["replays"] for k, v in acct["replayed"].items() if v}
     walls = []
     for _ in range(spans):
         t0 = time.perf_counter()
@@ -1270,15 +1474,19 @@ def step_timing_graphed(cfg, banks, device, batch: int, frames: int, spans: int,
         walls.append((time.perf_counter() - t0) / n)
     ms = 1e3 * float(np.median(walls))
     finite = bool(torch.isfinite(rows).all())
-    print(f"train: step at batch {batch} x {frames} as CUDA-graph replays (--scan_epochs 1): "
+    audio_s = batch * frames * HOP / SAMPLE_RATE
+    against = "" if eager_ms is None else f" against {eager_ms:.3f} a step at a time"
+    print(f"train: {name} step at batch {batch} x {frames} as CUDA-graph replays "
+          f"(--scan_epochs 1): "
           f"{ms:.3f} ms/step (median of {spans} spans of {n} steps, each span's wall time "
           f"over its steps, one synchronize at its end; spans {[round(1e3 * w, 3) for w in walls]})"
-          f" against {eager_ms:.3f} a step at a time; launches per replayed step {per_step} "
-          f"(expected {PER_STEP[(batch, frames)]}); losses finite {finite}", flush=True)
-    if per_step != PER_STEP[(batch, frames)] or not finite:
+          f"{against}, {audio_s / (ms / 1e3):.2f} audio-s trained per s; launches per "
+          f"replayed step {replayed} (expected {want}); losses finite {finite}", flush=True)
+    if replayed != want or not finite:
         raise AssertionError(f"the replayed steps at {batch} x {frames} went wrong")
-    profile(lambda: runner.run(state, n), ms * n / 1e3,
-            f"{n} replayed training steps at batch {batch} x {frames}")
+    k = 5 if batch == 1 else 1
+    profile(lambda: runner.run(state, k), ms * k / 1e3,
+            f"{k} replayed {name} training steps at batch {batch} x {frames}")
     del state, runner
     torch.cuda.empty_cache()
 
@@ -1288,7 +1496,9 @@ def phase_long_crops(pre: str, device):
     step's upSample2 backwards take the split route (K6) and its upSample1
     backwards K5; then a 1 x 320 step, where both split: its time, its
     sites, and the split route against K5 at one upSample2 site. Returns the
-    run's launches, the 1 x 320 step's sites, and that site's times."""
+    run's launches, the 1 x 320 step's sites, that site's times, and the
+    launches per step as run: the CLI run's over its steps at 1 x 192, the
+    timed step's at 1 x 320."""
     save = os.path.join(WORK, "long_results")
     n_steps = min(len(MelBank.from_list(load_speaker(pre, sid)[0], 192)) for sid in SPEAKERS)
     reset_counts()
@@ -1301,7 +1511,7 @@ def phase_long_crops(pre: str, device):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = run_launches(acct)
-    want = {k: n_steps * PER_STEP[(1, 192)].get(k, 0) for k in KERNELS}
+    want = {k: n_steps * per_step(1, 192).get(k, 0) for k in KERNELS}
     print(f"long crops: CLI --num_frames 192, one epoch of {n_steps} steps (the utterances "
           f"of at least 192 frames) {wall:.1f} s; launches {launches} (expected {want}: K5 "
           f"3 and K6 3 a step); {accounting_line(acct)}", flush=True)
@@ -1320,7 +1530,7 @@ def phase_long_crops(pre: str, device):
 
     ps.pixel_shuffle_in_swish_backward_split = keep_first_upsample2
     try:
-        _, sites = phase_step_timing(pre, device, 1, 320)
+        step_launches, sites = phase_step_timing(pre, device, 1, 320)
     finally:
         ps.pixel_shuffle_in_swish_backward_split = real
     x, dy, s, b = kept[0]
@@ -1344,33 +1554,72 @@ def phase_long_crops(pre: str, device):
           f"gradient) against K5 {fused_ms:.5f} (CUDA-graph replay)", flush=True)
     times = {"split_ms": split_ms, "fused_ms": fused_ms, "site": list(x.shape)}
     del kept, x, dy
-    return launches, sites, times
+    per = {"1x192": {k: n // n_steps for k, n in launches.items()}, "1x320": step_launches}
+    return launches, sites, times, per
+
+
+def phase_long_crops_bf16(pre: str, device):
+    """bf16 long crops: the train CLI at --num_frames 320 with --dtype
+    bfloat16 for one epoch. At 2 bytes an element upSample2's per-sample
+    block is past the budget and upSample1's within it, so each step runs 3
+    bf16 K6 (the split route) and 3 bf16 K5, as per_step predicts; then one
+    1 x 320 bf16 step, its time and its sites. Returns the run's launches,
+    the step's sites, and its launches per step at 1 x 320 as run."""
+    save = os.path.join(WORK, "long_results")
+    n_steps = min(len(MelBank.from_list(load_speaker(pre, sid)[0], 320)) for sid in SPEAKERS)
+    reset_counts()
+    with graph_accounting() as acct:
+        t0 = time.perf_counter()
+        train_main(["--name", "long_bf16", "--save_dir", save, "--preprocessed_data_dir", pre,
+                    "--device", "cuda", "--batch_size", "1", "--num_frames", "320",
+                    "--dtype", "bfloat16", "--num_epochs", "1", "--epochs_per_save", "100",
+                    "--epochs_per_plot", "100", "--steps_per_print", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = run_launches(acct)
+    step_want = per_step(1, 320, torch.bfloat16)
+    want = {k: n_steps * step_want.get(k, 0) for k in KERNELS}
+    print(f"long crops bf16: CLI --num_frames 320 --dtype bfloat16, one epoch of {n_steps} "
+          f"steps {wall:.1f} s; launches {launches} (expected {want}: per step {step_want}); "
+          f"{accounting_line(acct)}", flush=True)
+    if launches != want:
+        raise AssertionError("the bf16 long-crop run did not launch K5 and K6 as expected")
+    rows, vals = _log_losses(os.path.join(save, "long_bf16", "long_bf16.log"))
+    if len(rows) != n_steps or not np.isfinite(vals).all():
+        raise AssertionError("the bf16 long-crop run logged a non-finite loss")
+    step_launches, sites = phase_step_timing(pre, device, 1, 320, dtype=torch.bfloat16)
+    return launches, sites, {"1x320": step_launches}
 
 
 def measure_shuffles(sites, device):
-    """K6 on every inverse-shuffle site, and K7 at the transposed shape:
-    exact against their plain versions, with times and the bound (8 bytes
-    an element, no arithmetic)."""
+    """K6 on every inverse-shuffle site, and K7 at the transposed shape, in
+    the site's dtype: exact against their plain versions, with times and the
+    bound (two element sizes an element, no arithmetic)."""
     gen = torch.Generator(device=device).manual_seed(3)
     records = {}
-    for site in (s for s in sites.values() if s.kernel == "inv_shuffle"):
+    for site in (s for s in sites.values() if base_name(s.kernel) == "inv_shuffle"):
         B, C, H2, W2 = site.shape
+        dtype = dtype_of(site.kernel)
         for name, shape in (("inv_shuffle", site.shape), ("shuffle", (B, 4 * C, H2 // 2, W2 // 2))):
+            name = entry_name(name, dtype)
             spec = KERNELS[name]
-            t = torch.randn(shape, device=device, generator=gen)
+            t = torch.randn(shape, device=device, generator=gen).to(dtype)
             got, want = spec["fn"](t), spec["plain"](t)
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
+            err = (got.float() - want.float()).abs().max().item()
             if not torch.equal(got, want):
                 raise AssertionError(f"{name} at {shape}: max abs err {err:.3g}, not exact")
             ms = device_ms(lambda: spec["fn"](t), 10)
             plain_ms = device_ms(lambda: spec["plain"](t), 10)
             lib_ms = device_ms(lambda: spec["library"](t), 10)
-            b_ms = 1e3 * 8 * t.numel() / HBM_BYTES_PER_S
-            print(f"kernels: train 1x320/step {name:11s} in {str(shape):22s} x{site.count} "
+            if got.dtype != dtype:
+                raise AssertionError(f"{name} returned {got.dtype} for {dtype}")
+            nbytes = 2 * t.element_size() * t.numel()
+            b_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+            print(f"kernels: train 1x320/step {name:16s} in {str(shape):22s} x{site.count} "
                   f"max_abs_err {err:.3g} (exact) ms {ms:.5f} plain_ms {plain_ms:.5f} "
                   f"library_ms {lib_ms:.5f} bound_us {1e3 * b_ms:.3f} (bytes; "
-                  f"{8 * t.numel() / (ms * 1e-3) / 1e12:.2f} TB/s achieved)", flush=True)
+                  f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s achieved)", flush=True)
             r = records.setdefault(name, dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
                                               bound_ms=0.0, max_abs_err=0.0, bound_by="bytes",
                                               launches=0))
@@ -1397,6 +1646,13 @@ def main() -> int:
           f"nvidia-smi: {smi}", flush=True)
     device = resolve_device("cuda")
     shutil.rmtree(WORK, ignore_errors=True)
+    start = last = time.perf_counter()
+
+    def took(what: str) -> None:
+        nonlocal last
+        now = time.perf_counter()
+        print(f"time: {what} {now - last:.1f} s (script {now - start:.1f} s)", flush=True)
+        last = now
 
     t0 = time.perf_counter()
     logs = cuda_lib.build(["in_gate", "ps_in_swish", "melspec", "melgan_stack",
@@ -1408,27 +1664,56 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}")
 
+    took("build")
     audio_pre, log_mel_launches, mel_inputs = phase_preprocess(device)
+    took("preprocess")
     convert_sites = phase_convert(device)
+    took("convert")
     vocoder_ckpt, stack_launches, stage_calls = phase_decode(
         device, audio_pre, os.path.join(WORK, "ckpts"))
-    launches, pre = phase_train(device, vocoder_ckpt)
+    took("decode")
+    launches, pre, train_args, f32_losses = phase_train(device, vocoder_ckpt)
+    took("train")
+    launches.update({k: n for k, n in phase_train_bf16(device, pre, train_args, f32_losses)
+                     .items() if k.endswith("_bf16")})
+    took("train bf16")
     phase_cross_step(pre, device)
+    took("cross step")
     per_step1, sites1 = phase_step_timing(pre, device, 1, 64, graph_spans=3)
     per_step32, sites32 = phase_step_timing(pre, device, 32, 128, graph_spans=2)
-    long_launches, sites320, split_times = phase_long_crops(pre, device)
+    took("f32 step timing")
+    bf16 = torch.bfloat16
+    bf16_step1, bf16_sites1 = phase_step_timing(pre, device, 1, 64, 3, dtype=bf16)
+    bf16_step32, bf16_sites32 = phase_step_timing(pre, device, 32, 128, 2, dtype=bf16)
+    per_step1.update(bf16_step1)
+    per_step32.update(bf16_step32)
+    took("bf16 step timing")
+    # TF32: 1 x 64 as graph replays only, 32 x 128 a step at a time only.
+    phase_step_timing(pre, device, 1, 64, 3, precision="tensorfloat32", eager=False)
+    phase_step_timing(pre, device, 32, 128, precision="tensorfloat32")
+    took("TF32 step timing")
+    long_launches, sites320, split_times, long_per = phase_long_crops(pre, device)
+    took("long crops")
+    bf16_long_launches, bf16_sites320, bf16_long_per = phase_long_crops_bf16(pre, device)
+    long_launches.update({k: n for k, n in bf16_long_launches.items() if k.endswith("_bf16")})
+    took("long crops bf16")
 
-    t0 = time.perf_counter()
     measure_sites(convert_sites, device, "convert/forward")
     step1 = measure_sites(sites1, device, "train 1x64/step")
     step32 = measure_sites(sites32, device, "train 32x128/step")
+    step1.update(measure_sites(bf16_sites1, device, "train bf16 1x64/step"))
+    step32.update(measure_sites(bf16_sites32, device, "train bf16 32x128/step"))
     shuffles = measure_shuffles(sites320, device)
+    shuffles.update(measure_shuffles(bf16_sites320, device))
     audio = {"log_mel": (measure_log_mel(mel_inputs, device), log_mel_launches),
              "melgan_stack": (measure_resstack(stage_calls, device), stack_launches)}
-    print(f"kernels: phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    took("kernels")
 
+    # K1-K5, f32 then bf16: launches, the main path's CLI run (phase_train,
+    # phase_train_bf16); ms, plain_ms, library_ms and bound_ms summed over
+    # one 1 x 64 step's sites, with the 32 x 128 step's beside them.
     kernels = []
-    for k in NORM_KERNELS:
+    for k in (*NORM_KERNELS, *(f"{k}_bf16" for k in NORM_KERNELS)):
         spec, r = KERNELS[k], step1[k]
         kernels.append({
             "name": k, "route": "cuda", "source": spec["source"],
@@ -1439,16 +1724,18 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "ms_32x128": step32[k]["ms"], "bound_ms_32x128": step32[k]["bound_ms"]})
     # K6, K7: ms, plain_ms, library_ms and bound_ms summed over the 1 x 320
-    # step's six K6 sites (K7 at the transposed shapes); launches: the
-    # long-crop run's (K7 is on no path: K6's gradient, launched only by the
-    # kernels phase and the card tests).
-    for k in ("inv_shuffle", "shuffle"):
+    # step's K6 sites (K7 at the transposed shapes): six in f32, three in
+    # bf16; launches: the long-crop runs' (K7 is on no path: K6's gradient,
+    # launched only by the kernels phase and the card tests); launches per
+    # step at each size its dtype ran (f32 1 x 192 and 1 x 320, bf16 1 x 320).
+    per_size = {torch.float32: long_per, torch.bfloat16: bf16_long_per}
+    for k in ("inv_shuffle", "shuffle", "inv_shuffle_bf16", "shuffle_bf16"):
         r = shuffles[k]
         kernels.append({
             "name": k, "route": "cuda", "source": KERNELS[k]["source"],
             "replaces": KERNELS[k]["replaces"], "launches": long_launches[k],
-            "launches_per_step_1x192": PER_STEP[(1, 192)].get(k, 0),
-            "launches_per_step_1x320": PER_STEP[(1, 320)].get(k, 0),
+            **{f"launches_per_step_{size}": counts.get(k, 0)
+               for size, counts in per_size[dtype_of(k)].items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})

@@ -2,9 +2,9 @@
 
 Counterpart of ``maskcyclegan_vc_tpu/cli/train.py``, with its flag names
 and defaults, plus ``--device {cuda,cpu}`` (cuda by default, with no silent
-fallback). Compute is f32 with TF32 off. It writes the JAX trainer's
-checkpoint (``<save_dir>/<name>/ckpts/NNNNN_state.npz``), which either
-package resumes from or converts with.
+fallback). It writes the JAX trainer's checkpoint
+(``<save_dir>/<name>/ckpts/NNNNN_state.npz``), which either package resumes
+from or converts with.
 
     python -m maskcyclegan_vc_tpu_torch.cli.train \\
         --name mask_cyclegan_vc_VCC2SF3_VCC2TF1 --seed 0 --save_dir results/ \\
@@ -16,10 +16,17 @@ package resumes from or converts with.
 ``--scan_epochs 1`` (the default, as in the JAX CLI) runs each epoch with no
 host synchronisation inside it: on the card the step is a CUDA graph,
 replayed once per step (``train/graphs.py``); ``--scan_epochs 0`` dispatches
-every step from the host. Not defined yet, so argparse rejects them:
---dtype and --precision (f32 only), --fused_norms (the port's kernels always
-run on the card), --distributed and --grad_allreduce_dtype (data
-parallelism).
+every step from the host.
+
+``--dtype bfloat16`` trains in bf16: convolutions in bf16, the norm kernels'
+bf16 forms (f32 statistics), losses, parameters, Adam and checkpoints in
+f32; ``auto`` is float32, as the JAX CLI's is off a TPU. ``--precision``
+``high``, ``tensorfloat32`` or ``default`` allows TF32 in cuDNN and cuBLAS;
+unset, ``highest`` or ``float32`` keep true f32. ``--fused_norms 0`` runs the
+norm kernels' plain PyTorch versions on the card (``auto`` and ``1``: the
+kernels). Not defined yet, so argparse rejects them: --distributed and
+--grad_allreduce_dtype (data parallelism).
+
 At plot cadence the four spectrogram panels are also decoded to audio
 (``--plot_audio auto``): by the MelGAN vocoder of ``--vocoder_ckpt``, else
 by Griffin-Lim.
@@ -88,6 +95,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--plot_audio", choices=["auto", "off"], default=d.plot_audio,
                    help="audio at plot cadence: auto = MelGAN with --vocoder_ckpt, "
                         "else Griffin-Lim; off = none")
+    p.add_argument("--dtype", choices=["auto", "float32", "bfloat16"], default=d.dtype,
+                   help="compute dtype; auto = float32")
+    p.add_argument("--precision", type=str, default=d.precision,
+                   help="highest/float32 (the default): true f32; "
+                        "high/tensorfloat32/default: TF32 convolutions and matmuls")
+    p.add_argument("--fused_norms", choices=["auto", "0", "1"], default=d.fused_norms,
+                   help="the norm kernels (auto, 1) or their plain versions (0)")
     p.add_argument("--device", type=str, default=d.device, choices=["cuda", "cpu"])
     return p
 

@@ -11,6 +11,11 @@
 // (ops/layers.py:204-215 and :270-278). Forward only: the backwards are
 // the JAX package's XLA formulas, written in PyTorch (ops/in_gate.py).
 //
+// Each entry has an f32 form and a bf16 form (the `_bf16` entries), as the
+// Pallas kernels take x in either dtype (in_gate_kernel.py:66-114): x and y
+// are in that dtype, scale, bias and every statistic and product are f32,
+// and y is rounded once, to nearest even, from the f32 result.
+//
 // Layout: NCHW. Each (sample, channel) is one contiguous row of S = H*W
 // floats whose last axis, of width W, is time. For the GLU the input is the
 // paired conv's (B, 2C, H, W) output: rows c and C+c are h and g. lengths[b]
@@ -31,9 +36,11 @@
 // row (sum, centred squares, normalise and write) read the row three times;
 // the second and third reads hit a row the same group has just read, which
 // L2 (50 MB) still holds at this model's sizes, so device memory sees about
-// one read and one write per element. Loads are plain coalesced f32; wider
-// loads and keeping the row on chip are left for later work.
+// one read and one write per element (2 bytes each in bf16). Loads are
+// plain coalesced elements; wider loads and keeping the row on chip are left
+// for later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -74,6 +81,15 @@ __device__ __forceinline__ float row_sum(float v, float* smem) {
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
+__device__ __forceinline__ float load(const float* p, size_t i) { return p[i]; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void store(float* p, size_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, size_t i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
 // What follows the normalisation: nothing, swish, or the GLU gate.
 enum Epilogue { kPlain = 0, kSwish = 1, kGlu = 2 };
 
@@ -84,14 +100,14 @@ __device__ __forceinline__ int valid_offset(int i, int L, int W) {
   return h * W + (i - h * L);
 }
 
-template <bool kWarpRow, int kEpilogue>
-__global__ void in_kernel(const float* __restrict__ x,
+template <typename T, bool kWarpRow, int kEpilogue>
+__global__ void in_kernel(const T* __restrict__ x,
                           const float* __restrict__ scale_h,
                           const float* __restrict__ bias_h,
                           const float* __restrict__ scale_g,
                           const float* __restrict__ bias_g,
                           const int* __restrict__ lengths,
-                          float* __restrict__ y, int B, int C, int S, int W) {
+                          T* __restrict__ y, int B, int C, int S, int W) {
   constexpr bool kGated = kEpilogue == kGlu;
   __shared__ float smem[33];
   int row, t, nt;
@@ -110,15 +126,15 @@ __global__ void in_kernel(const float* __restrict__ x,
   const int n = (S / W) * L;
   const float inv_n = 1.f / (float)max(n, 1);
 
-  const float* xh = x + ((kGated ? (size_t)b * 2 * C + c : (size_t)row) * S);
-  const float* xg = xh + (size_t)C * S;  // read only when kGated
-  float* yr = y + (size_t)row * S;
+  const T* xh = x + ((kGated ? (size_t)b * 2 * C + c : (size_t)row) * S);
+  const T* xg = xh + (size_t)C * S;  // read only when kGated
+  T* yr = y + (size_t)row * S;
 
   float sh = 0.f, sg = 0.f;
   for (int i = t; i < n; i += nt) {
     const int k = valid_offset(i, L, W);
-    sh += xh[k];
-    if (kGated) sg += xg[k];
+    sh += load(xh, k);
+    if (kGated) sg += load(xg, k);
   }
   const float mh = row_sum<kWarpRow>(sh, smem) * inv_n;
   const float mg = kGated ? row_sum<kWarpRow>(sg, smem) * inv_n : 0.f;
@@ -126,10 +142,10 @@ __global__ void in_kernel(const float* __restrict__ x,
   float qh = 0.f, qg = 0.f;
   for (int i = t; i < n; i += nt) {
     const int k = valid_offset(i, L, W);
-    const float dh = xh[k] - mh;
+    const float dh = load(xh, k) - mh;
     qh += dh * dh;
     if (kGated) {
-      const float dg = xg[k] - mg;
+      const float dg = load(xg, k) - mg;
       qg += dg * dg;
     }
   }
@@ -144,27 +160,29 @@ __global__ void in_kernel(const float* __restrict__ x,
   for (int s = t; s < S; s += nt) {
     float out = 0.f;
     if (s % W < L) {
-      out = xh[s] * ah + bh;
+      out = load(xh, s) * ah + bh;
       if (kEpilogue == kSwish) out = out / (1.f + expf(-out));
-      if (kGated) out *= sigmoid(xg[s] * ag + bg);
+      if (kGated) out *= sigmoid(load(xg, s) * ag + bg);
     }
-    yr[s] = out;
+    store(yr, s, out);
   }
 }
 
-template <int kEpilogue>
-int launch(const float* x, const float* scale_h, const float* bias_h,
+template <typename T, int kEpilogue>
+int launch(const void* x, const float* scale_h, const float* bias_h,
            const float* scale_g, const float* bias_g, const int* lengths,
-           float* y, int B, int C, int S, int W, void* stream) {
+           void* y, int B, int C, int S, int W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = B * C;
   if (S <= kWarpRowMaxS) {
     const int blocks = (rows + kWarpRowsPerBlock - 1) / kWarpRowsPerBlock;
-    in_kernel<true, kEpilogue><<<blocks, 32 * kWarpRowsPerBlock, 0, st>>>(
-        x, scale_h, bias_h, scale_g, bias_g, lengths, y, B, C, S, W);
+    in_kernel<T, true, kEpilogue><<<blocks, 32 * kWarpRowsPerBlock, 0, st>>>(
+        static_cast<const T*>(x), scale_h, bias_h, scale_g, bias_g, lengths,
+        static_cast<T*>(y), B, C, S, W);
   } else {
-    in_kernel<false, kEpilogue><<<rows, kBlockThreads, 0, st>>>(
-        x, scale_h, bias_h, scale_g, bias_g, lengths, y, B, C, S, W);
+    in_kernel<T, false, kEpilogue><<<rows, kBlockThreads, 0, st>>>(
+        static_cast<const T*>(x), scale_h, bias_h, scale_g, bias_g, lengths,
+        static_cast<T*>(y), B, C, S, W);
   }
   return (int)cudaGetLastError();
 }
@@ -173,29 +191,52 @@ int launch(const float* x, const float* scale_h, const float* bias_h,
 
 extern "C" {
 
-// x, y: (B, C, S) rows; lengths: (B,) int32 or null. Returns a cudaError_t.
-int in_forward(const float* x, const float* scale, const float* bias,
-               const int* lengths, float* y, int B, int C, int S, int W,
+// x, y: (B, C, S) rows of f32 (bf16 in the _bf16 entries); scale, bias:
+// (C,) f32; lengths: (B,) int32 or null. Each returns a cudaError_t.
+int in_forward(const void* x, const float* scale, const float* bias,
+               const int* lengths, void* y, int B, int C, int S, int W,
                void* stream) {
-  return launch<kPlain>(x, scale, bias, nullptr, nullptr, lengths, y, B, C,
-                        S, W, stream);
+  return launch<float, kPlain>(x, scale, bias, nullptr, nullptr, lengths, y,
+                               B, C, S, W, stream);
 }
 
-// swish(IN(x)); the same layout as in_forward. Returns a cudaError_t.
-int in_swish_forward(const float* x, const float* scale, const float* bias,
-                     const int* lengths, float* y, int B, int C, int S, int W,
+int in_forward_bf16(const void* x, const float* scale, const float* bias,
+                    const int* lengths, void* y, int B, int C, int S, int W,
+                    void* stream) {
+  return launch<__nv_bfloat16, kPlain>(x, scale, bias, nullptr, nullptr,
+                                       lengths, y, B, C, S, W, stream);
+}
+
+// swish(IN(x)); the same layout as in_forward.
+int in_swish_forward(const void* x, const float* scale, const float* bias,
+                     const int* lengths, void* y, int B, int C, int S, int W,
                      void* stream) {
-  return launch<kSwish>(x, scale, bias, nullptr, nullptr, lengths, y, B, C,
-                        S, W, stream);
+  return launch<float, kSwish>(x, scale, bias, nullptr, nullptr, lengths, y,
+                               B, C, S, W, stream);
 }
 
-// x: (B, 2C, S) rows (h then g); y: (B, C, S). Returns a cudaError_t.
-int in_glu_forward(const float* x, const float* scale_h, const float* bias_h,
+int in_swish_forward_bf16(const void* x, const float* scale,
+                          const float* bias, const int* lengths, void* y,
+                          int B, int C, int S, int W, void* stream) {
+  return launch<__nv_bfloat16, kSwish>(x, scale, bias, nullptr, nullptr,
+                                       lengths, y, B, C, S, W, stream);
+}
+
+// x: (B, 2C, S) rows (h then g); y: (B, C, S).
+int in_glu_forward(const void* x, const float* scale_h, const float* bias_h,
                    const float* scale_g, const float* bias_g,
-                   const int* lengths, float* y, int B, int C, int S, int W,
+                   const int* lengths, void* y, int B, int C, int S, int W,
                    void* stream) {
-  return launch<kGlu>(x, scale_h, bias_h, scale_g, bias_g, lengths, y, B, C,
-                      S, W, stream);
+  return launch<float, kGlu>(x, scale_h, bias_h, scale_g, bias_g, lengths, y,
+                             B, C, S, W, stream);
+}
+
+int in_glu_forward_bf16(const void* x, const float* scale_h,
+                        const float* bias_h, const float* scale_g,
+                        const float* bias_g, const int* lengths, void* y,
+                        int B, int C, int S, int W, void* stream) {
+  return launch<__nv_bfloat16, kGlu>(x, scale_h, bias_h, scale_g, bias_g,
+                                     lengths, y, B, C, S, W, stream);
 }
 
 const char* kernel_error_string(int code) {

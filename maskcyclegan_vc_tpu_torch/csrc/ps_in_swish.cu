@@ -25,10 +25,17 @@
 // and every output at ow >= lengths[b] is written as 0. f32, two-pass,
 // biased, eps 1e-5.
 //
+// Each entry has an f32 form and a bf16 form (the `_bf16` entries), as the
+// Pallas kernels take x in either dtype (ps_kernel.py:73-111, :226-253): x,
+// y, dy and dx are in that dtype; scale, bias, mean, inv, dscale, dbias and
+// all arithmetic are f32, and each stored element is rounded once, to
+// nearest even. In bf16 the backward's parked dz is rounded to bf16 and read
+// back, as the Pallas kernel's dx block rounds it (ps_kernel.py:233, :251).
+//
 // Bound on an H100 SXM (3.35 TB/s): memory. The forward must read the 4C
 // input rows once and write the shuffled tensor once, 8 bytes for each of
-// the 4*C*H*W elements; the backward must read x and dy and write dx, 12
-// bytes each. The arithmetic (about fifteen flops and one exp per element
+// the 4*C*H*W elements in f32 (4 in bf16); the backward must read x and dy
+// and write dx, 12 bytes each (6 in bf16). The arithmetic (about fifteen flops and one exp per element
 // forward, about thirty backward) is far under the f32 rate. The design
 // gives each output channel to one block of kBlockThreads, which walks its
 // plane in output order: y (forward) and dy (backward) are fully coalesced,
@@ -43,6 +50,7 @@
 // over B, so the result needs no atomics and does not depend on the order
 // in which blocks run.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -74,17 +82,27 @@ __device__ float block_sum(float v, float* smem) {
   return total;
 }
 
+__device__ __forceinline__ float load(const float* p, size_t i) { return p[i]; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void store(float* p, size_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, size_t i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
 // Offset in the channel's four input rows (each H x W) of output (oh, ow).
 __device__ __forceinline__ int source_offset(int oh, int ow, int H, int W) {
   const int q = ((oh & 1) << 1) | (ow & 1);
   return (q * H + (oh >> 1)) * W + (ow >> 1);
 }
 
-__global__ void ps_in_swish_kernel(const float* __restrict__ x,
+template <typename T>
+__global__ void ps_in_swish_kernel(const T* __restrict__ x,
                                    const float* __restrict__ scale,
                                    const float* __restrict__ bias,
                                    const int* __restrict__ lengths,
-                                   float* __restrict__ y,
+                                   T* __restrict__ y,
                                    float* __restrict__ mean_out,
                                    float* __restrict__ inv_out, int C, int H,
                                    int W) {
@@ -95,20 +113,20 @@ __global__ void ps_in_swish_kernel(const float* __restrict__ x,
   const int L = lengths ? min(max(lengths[b], 0), W2) : W2;
   const int n = H2 * L;
   const float inv_n = 1.f / (float)max(n, 1);
-  const float* xr = x + (size_t)row * S4;  // rows 4c .. 4c+3 of sample b
-  float* yr = y + (size_t)row * S4;
+  const T* xr = x + (size_t)row * S4;  // rows 4c .. 4c+3 of sample b
+  T* yr = y + (size_t)row * S4;
 
   float s = 0.f;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int oh = i / L;
-    s += xr[source_offset(oh, i - oh * L, H, W)];
+    s += load(xr, source_offset(oh, i - oh * L, H, W));
   }
   const float mean = block_sum(s, smem) * inv_n;
 
   float q = 0.f;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int oh = i / L;
-    const float d = xr[source_offset(oh, i - oh * L, H, W)] - mean;
+    const float d = load(xr, source_offset(oh, i - oh * L, H, W)) - mean;
     q += d * d;
   }
   const float inv = rsqrtf(block_sum(q, smem) * inv_n + kEps);
@@ -123,18 +141,19 @@ __global__ void ps_in_swish_kernel(const float* __restrict__ x,
     const int oh = o / W2, ow = o - oh * W2;
     float out = 0.f;
     if (ow < L) {
-      const float z = xr[source_offset(oh, ow, H, W)] * a + sh;
+      const float z = load(xr, source_offset(oh, ow, H, W)) * a + sh;
       out = z / (1.f + expf(-z));
     }
-    yr[o] = out;
+    store(yr, o, out);
   }
 }
 
+template <typename T>
 __global__ void ps_in_swish_backward_kernel(
-    const float* __restrict__ x, const float* __restrict__ dy,
+    const T* __restrict__ x, const T* __restrict__ dy,
     const float* __restrict__ scale, const float* __restrict__ bias,
     const float* __restrict__ mean_in, const float* __restrict__ inv_in,
-    float* __restrict__ dx, float* __restrict__ dscale,
+    T* __restrict__ dx, float* __restrict__ dscale,
     float* __restrict__ dbias, int C, int H, int W) {
   __shared__ float smem[33];
   const int row = blockIdx.x;  // b * C + c
@@ -143,20 +162,20 @@ __global__ void ps_in_swish_backward_kernel(
   const float mean = mean_in[row], inv = inv_in[row];
   const float a = inv * scale[c];
   const float sh = bias[c] - mean * a;
-  const float* xr = x + (size_t)row * S4;
-  const float* dyr = dy + (size_t)row * S4;
-  float* dxr = dx + (size_t)row * S4;
+  const T* xr = x + (size_t)row * S4;
+  const T* dyr = dy + (size_t)row * S4;
+  T* dxr = dx + (size_t)row * S4;
 
   // Pass A: dz = dy * swish'(z), parked in dx; sums of dz and dz * x.
   float sdz = 0.f, sdzx = 0.f;
   for (int o = threadIdx.x; o < S4; o += blockDim.x) {
     const int oh = o / W2, ow = o - oh * W2;
     const int k = source_offset(oh, ow, H, W);
-    const float xv = xr[k];
+    const float xv = load(xr, k);
     const float z = xv * a + sh;
     const float sg = 1.f / (1.f + expf(-z));
-    const float dz = dyr[o] * (sg + z * sg * (1.f - sg));
-    dxr[k] = dz;
+    const float dz = load(dyr, o) * (sg + z * sg * (1.f - sg));
+    store(dxr, k, dz);
     sdz += dz;
     sdzx += dz * xv;
   }
@@ -169,44 +188,82 @@ __global__ void ps_in_swish_backward_kernel(
     dbias[row] = sdz;
   }
 
-  // Pass B: dx = a * (dz - sum(dz)/n - xhat * dscale/n), xhat = (x-mean)*inv.
+  // Pass B: dx = a * (dz - sum(dz)/n - xhat * dscale/n), xhat = (x-mean)*inv,
+  // with dz the parked value (in bf16, rounded).
   const float inv_n = 1.f / (float)S4;
   const float mdz = sdz * inv_n, mdzx = dsc * inv_n;
   for (int o = threadIdx.x; o < S4; o += blockDim.x) {
     const int oh = o / W2, ow = o - oh * W2;
     const int k = source_offset(oh, ow, H, W);
-    const float xhat = (xr[k] - mean) * inv;
-    dxr[k] = a * (dxr[k] - mdz - xhat * mdzx);
+    const float xhat = (load(xr, k) - mean) * inv;
+    store(dxr, k, a * (load(dxr, k) - mdz - xhat * mdzx));
   }
+}
+
+template <typename T>
+int forward(const void* x, const float* scale, const float* bias,
+            const int* lengths, void* y, float* mean, float* inv, int B, int C,
+            int H, int W, void* stream) {
+  ps_in_swish_kernel<T><<<B * C, kBlockThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), scale, bias, lengths, static_cast<T*>(y), mean,
+      inv, C, H, W);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int backward(const void* x, const void* dy, const float* scale,
+             const float* bias, const float* mean, const float* inv, void* dx,
+             float* dscale, float* dbias, int B, int C, int H, int W,
+             void* stream) {
+  ps_in_swish_backward_kernel<T><<<B * C, kBlockThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), scale, bias, mean,
+      inv, static_cast<T*>(dx), dscale, dbias, C, H, W);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// x: (B, 4C, H, W); y: (B, C, 2H, 2W); lengths: (B,) int32 or null;
-// mean, inv: (B, C) f32 outputs, both null or both given.
-// Returns a cudaError_t.
-int ps_in_swish_forward(const float* x, const float* scale, const float* bias,
-                        const int* lengths, float* y, float* mean, float* inv,
+// x: (B, 4C, H, W); y: (B, C, 2H, 2W), both f32 (bf16 in the _bf16 entry);
+// lengths: (B,) int32 or null; mean, inv: (B, C) f32 outputs, both null or
+// both given. Returns a cudaError_t.
+int ps_in_swish_forward(const void* x, const float* scale, const float* bias,
+                        const int* lengths, void* y, float* mean, float* inv,
                         int B, int C, int H, int W, void* stream) {
-  ps_in_swish_kernel<<<B * C, kBlockThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, scale, bias, lengths, y, mean, inv, C, H, W);
-  return (int)cudaGetLastError();
+  return forward<float>(x, scale, bias, lengths, y, mean, inv, B, C, H, W,
+                        stream);
 }
 
-// x, dx: (B, 4C, H, W); dy: (B, C, 2H, 2W); mean, inv: (B, C) from the
-// forward; dscale, dbias: (B, C) per-sample outputs. Returns a cudaError_t.
-int ps_in_swish_backward(const float* x, const float* dy, const float* scale,
+int ps_in_swish_forward_bf16(const void* x, const float* scale,
+                             const float* bias, const int* lengths, void* y,
+                             float* mean, float* inv, int B, int C, int H,
+                             int W, void* stream) {
+  return forward<__nv_bfloat16>(x, scale, bias, lengths, y, mean, inv, B, C,
+                                H, W, stream);
+}
+
+// x, dx: (B, 4C, H, W); dy: (B, C, 2H, 2W), all f32 (bf16 in the _bf16
+// entry); mean, inv: (B, C) f32 from the forward; dscale, dbias: (B, C) f32
+// per-sample outputs. Returns a cudaError_t.
+int ps_in_swish_backward(const void* x, const void* dy, const float* scale,
                          const float* bias, const float* mean,
-                         const float* inv, float* dx, float* dscale,
+                         const float* inv, void* dx, float* dscale,
                          float* dbias, int B, int C, int H, int W,
                          void* stream) {
-  ps_in_swish_backward_kernel<<<B * C, kBlockThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      x, dy, scale, bias, mean, inv, dx, dscale, dbias, C, H, W);
-  return (int)cudaGetLastError();
+  return backward<float>(x, dy, scale, bias, mean, inv, dx, dscale, dbias, B,
+                         C, H, W, stream);
+}
+
+int ps_in_swish_backward_bf16(const void* x, const void* dy,
+                              const float* scale, const float* bias,
+                              const float* mean, const float* inv, void* dx,
+                              float* dscale, float* dbias, int B, int C,
+                              int H, int W, void* stream) {
+  return backward<__nv_bfloat16>(x, dy, scale, bias, mean, inv, dx, dscale,
+                                 dbias, B, C, H, W, stream);
 }
 
 const char* kernel_error_string(int code) {

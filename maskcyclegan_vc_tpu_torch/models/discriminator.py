@@ -18,6 +18,11 @@ an affine IN, 10,488,832 parameters) that its forward never calls; it is
 declared here too (``include_dead_params``), so checkpoints of either
 package and the reference round-trip, and it is never called or trained.
 LSGAN is computed on the sigmoid's probabilities, as in the reference.
+
+``dtype`` (None: f32) is the compute dtype, as in the JAX discriminator:
+the input is cast to it (JAX ``discriminator.py:96``), every conv and norm
+runs in it, and the sigmoid is taken in f32 (``:145``). ``fused_norms=False``
+runs the norms' plain versions in place of the kernel.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from torch import nn
 from maskcyclegan_vc_tpu_torch.ops.in_gate import time_mask
 from maskcyclegan_vc_tpu_torch.ops.layers import (
     InstanceNorm,
+    conv,
     init_conv_params,
     swish,
     swish_instance_norm,
@@ -53,20 +59,23 @@ class Discriminator(nn.Module):
     """
 
     def __init__(self, residual_channels: int = 256, include_dead_params: bool = True,
-                 *, device="cpu", generator: Optional[torch.Generator] = None):
+                 *, device="cpu", generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None, fused_norms: bool = True):
         super().__init__()
         R = residual_channels
+        self.dtype = dtype
         with torch.device("meta"):
             self.convLayer1 = nn.ModuleList([nn.Conv2d(1, R // 2, 3, 1, 1)])
             self.downSample1 = nn.ModuleList([nn.Conv2d(R // 2, R, 3, 2, 1),
-                                              InstanceNorm(R)])
+                                              InstanceNorm(R, fused_norms)])
             self.downSample2 = nn.ModuleList([nn.Conv2d(R, 2 * R, 3, 2, 1),
-                                              InstanceNorm(2 * R)])
+                                              InstanceNorm(2 * R, fused_norms)])
             self.downSample3 = nn.ModuleList([nn.Conv2d(2 * R, 4 * R, 3, 2, 1),
-                                              InstanceNorm(4 * R)])
+                                              InstanceNorm(4 * R, fused_norms)])
             if include_dead_params:
                 self.downSample4 = nn.ModuleList([
-                    nn.Conv2d(4 * R, 4 * R, (1, 10), 1, (0, 2)), InstanceNorm(4 * R)])
+                    nn.Conv2d(4 * R, 4 * R, (1, 10), 1, (0, 2)),
+                    InstanceNorm(4 * R, fused_norms)])
             self.outputConvLayer = nn.ModuleList([nn.Conv2d(4 * R, 1, (1, 3), 1, (0, 1))])
         self.to_empty(device=device)
         init_conv_params(self, generator or torch.Generator().manual_seed(0))
@@ -84,20 +93,20 @@ class Discriminator(nn.Module):
         activations are zero at every stage, and invalid output patches are
         zero, so the valid patches equal the unpadded forward's.
         """
-        h = x[:, None]  # (B, 1, M, T)
+        h = x[:, None].to(self.dtype or x.dtype)  # (B, 1, M, T)
         valid = None
         if lengths is not None:
             lengths = lengths.to(device=x.device, dtype=torch.int32)
-            valid = time_mask(lengths, x.shape[-1])[:, None, None, :]
+            valid = time_mask(lengths, x.shape[-1])[:, None, None, :].to(h.dtype)
             h = h * valid
-        h = swish(self.convLayer1[0](h))
+        h = swish(conv(self.convLayer1[0], h))
         if valid is not None:
             h = h * valid
         for block in (self.downSample1, self.downSample2, self.downSample3):
             if lengths is not None:
                 lengths = halved_len(lengths)
-            h = swish_instance_norm(block[0](h), block[1], lengths)
-        out = torch.sigmoid(self.outputConvLayer[0](h))[:, 0]
+            h = swish_instance_norm(conv(block[0], h), block[1], lengths)
+        out = torch.sigmoid(conv(self.outputConvLayer[0], h).float())[:, 0]
         if lengths is not None:
             out = out * time_mask(lengths, out.shape[-1])[:, None, :]
         return out

@@ -6,7 +6,13 @@ Counterpart of ``maskcyclegan_vc_tpu/ops/pallas/in_gate_kernel.py``
 masked InstanceNorm of ``maskcyclegan_vc_tpu/ops/layers.py``
 (``_masked_moments``, ``instance_norm_apply``). Torch InstanceNorm
 numerics: per-(sample, channel) statistics over every axis after the
-channel, biased variance, eps 1e-5, f32, affine.
+channel, biased variance, eps 1e-5, f32 statistics, affine.
+
+x is f32 or bf16, as the Pallas kernels take it; the per-channel vectors are
+f32. Statistics, affine and gate are computed in f32 and the output is
+rounded once to x's dtype (``in_gate_kernel.py:77-114``). Each kernel has
+one C entry per dtype, with its own launch count; a bf16 tensor never runs
+an f32 entry.
 
 Layout NCHW (or NCL): x is (B, C, *spatial) with time on the last axis.
 ``lengths``, an int32 (B,) count of valid frames along that axis, restricts
@@ -20,8 +26,8 @@ unmasked function runs through a ``torch.autograd.Function`` whose forward
 is that same kernel or plain version and whose backward is the JAX
 package's own (``_in_bwd``, ``_insw_bwd``, ``_inglu_bwd``: XLA there, eager
 PyTorch here, one code for both devices), recomputing the statistics from
-the saved input. The masked functions have no backward: no training path
-runs them.
+the saved input in f32 and returning dx in x's dtype, dscale and dbias in
+f32. The masked functions have no backward: no training path runs them.
 """
 
 from __future__ import annotations
@@ -34,13 +40,21 @@ from maskcyclegan_vc_tpu_torch.ops.cuda_lib import INT, PTR, CudaKernel
 
 EPS = 1e-5
 
-IN_KERNEL = CudaKernel("in_gate", "in_forward",
-                       [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR])
-IN_SWISH_KERNEL = CudaKernel("in_gate", "in_swish_forward",
-                             [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR])
-IN_GLU_KERNEL = CudaKernel("in_gate", "in_glu_forward",
-                           [PTR, PTR, PTR, PTR, PTR, PTR, PTR,
-                            INT, INT, INT, INT, PTR])
+DTYPES = (torch.float32, torch.bfloat16)
+_ROW_ARGS = [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR]
+_GLU_ARGS = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR]
+IN_KERNEL = CudaKernel("in_gate", "in_forward", _ROW_ARGS)
+IN_SWISH_KERNEL = CudaKernel("in_gate", "in_swish_forward", _ROW_ARGS)
+IN_GLU_KERNEL = CudaKernel("in_gate", "in_glu_forward", _GLU_ARGS)
+# The entry of each kernel for each dtype of x.
+ENTRIES = {
+    "in": {torch.float32: IN_KERNEL,
+           torch.bfloat16: CudaKernel("in_gate", "in_forward_bf16", _ROW_ARGS)},
+    "in_swish": {torch.float32: IN_SWISH_KERNEL,
+                 torch.bfloat16: CudaKernel("in_gate", "in_swish_forward_bf16", _ROW_ARGS)},
+    "in_glu": {torch.float32: IN_GLU_KERNEL,
+               torch.bfloat16: CudaKernel("in_gate", "in_glu_forward_bf16", _GLU_ARGS)},
+}
 
 
 def time_mask(lengths: torch.Tensor, width: int) -> torch.Tensor:
@@ -49,9 +63,9 @@ def time_mask(lengths: torch.Tensor, width: int) -> torch.Tensor:
     return (t[None, :] < lengths[:, None]).to(torch.float32)
 
 
-def instance_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                        lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Affine InstanceNorm of x (B, C, *spatial), f32 statistics."""
+def instance_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                      lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Affine InstanceNorm of x (B, C, *spatial) in f32, whatever x's dtype."""
     B, C = x.shape[:2]
     dims = tuple(range(2, x.ndim))
     affine_shape = (1, C) + (1,) * (x.ndim - 2)
@@ -72,12 +86,18 @@ def instance_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
     return y if m is None else y * m
 
 
+def instance_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                        lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Affine InstanceNorm of x (B, C, *spatial), f32 statistics, in x's dtype."""
+    return instance_norm_f32(x, scale, bias, lengths).to(x.dtype)
+
+
 def instance_norm_swish_plain(x: torch.Tensor, scale: torch.Tensor,
                               bias: torch.Tensor,
                               lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """swish(IN(x)); swish(0) = 0 keeps the masked frames at zero."""
-    z = instance_norm_plain(x, scale, bias, lengths)
-    return z * torch.sigmoid(z)
+    z = instance_norm_f32(x, scale, bias, lengths)
+    return (z * torch.sigmoid(z)).to(x.dtype)
 
 
 def instance_norm_glu_plain(hg: torch.Tensor, scale_h: torch.Tensor,
@@ -86,17 +106,17 @@ def instance_norm_glu_plain(hg: torch.Tensor, scale_h: torch.Tensor,
                             lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """IN(h) * sigmoid(IN(g)) with h, g the two channel halves of hg."""
     C = hg.shape[1] // 2
-    h = instance_norm_plain(hg[:, :C], scale_h, bias_h, lengths)
-    g = instance_norm_plain(hg[:, C:], scale_g, bias_g, lengths)
-    return h * torch.sigmoid(g)
+    h = instance_norm_f32(hg[:, :C], scale_h, bias_h, lengths)
+    g = instance_norm_f32(hg[:, C:], scale_g, bias_g, lengths)
+    return (h * torch.sigmoid(g)).to(hg.dtype)
 
 
 def check_args(x: torch.Tensor, channels: int, vecs, lengths) -> None:
     """Raise unless x, the per-channel vectors and lengths suit the kernels."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"expected float32, got {x.dtype}")
+    if x.dtype not in DTYPES:
+        raise ValueError(f"expected float32 or bfloat16, got {x.dtype}")
     if x.ndim < 3 or x.numel() == 0:
         raise ValueError(f"expected a non-empty (B, C, *spatial) tensor, got {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -129,35 +149,37 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _launch_rows(kernel: CudaKernel, x: torch.Tensor, vecs, lengths,
+def _launch_rows(kernel: str, x: torch.Tensor, vecs, lengths,
                  out_channels: int) -> torch.Tensor:
-    """One launch of an in_gate.cu entry over x's (B, C) rows."""
+    """One launch of in_gate.cu's entry of ``kernel`` for x's dtype over
+    x's (B, C) rows."""
     B = x.shape[0]
     y = torch.empty((B, out_channels) + tuple(x.shape[2:]), device=x.device,
                     dtype=x.dtype)
     with torch.cuda.device(x.device):
-        kernel(x.data_ptr(), *(v.data_ptr() for v in vecs), _ptr(lengths),
-               y.data_ptr(), B, out_channels, x[0, 0].numel(), x.shape[-1],
-               torch.cuda.current_stream().cuda_stream)
+        ENTRIES[kernel][x.dtype](x.data_ptr(), *(v.data_ptr() for v in vecs),
+                                 _ptr(lengths), y.data_ptr(), B, out_channels,
+                                 x[0, 0].numel(), x.shape[-1],
+                                 torch.cuda.current_stream().cuda_stream)
     return y
 
 
 def _in_forward(x, scale, bias, lengths=None):
     if x.device.type == "cpu":
         return instance_norm_plain(x, scale, bias, lengths)
-    return _launch_rows(IN_KERNEL, x, (scale, bias), lengths, x.shape[1])
+    return _launch_rows("in", x, (scale, bias), lengths, x.shape[1])
 
 
 def _in_swish_forward(x, scale, bias, lengths=None):
     if x.device.type == "cpu":
         return instance_norm_swish_plain(x, scale, bias, lengths)
-    return _launch_rows(IN_SWISH_KERNEL, x, (scale, bias), lengths, x.shape[1])
+    return _launch_rows("in_swish", x, (scale, bias), lengths, x.shape[1])
 
 
 def _in_glu_forward(hg, scale_h, bias_h, scale_g, bias_g, lengths=None):
     if hg.device.type == "cpu":
         return instance_norm_glu_plain(hg, scale_h, bias_h, scale_g, bias_g, lengths)
-    return _launch_rows(IN_GLU_KERNEL, hg, (scale_h, bias_h, scale_g, bias_g),
+    return _launch_rows("in_glu", hg, (scale_h, bias_h, scale_g, bias_g),
                         lengths, hg.shape[1] // 2)
 
 
@@ -166,7 +188,9 @@ def _in_glu_forward(hg, scale_h, bias_h, scale_g, bias_g, lengths=None):
 # ---------------------------------------------------------------------------
 
 def _normalized(x: torch.Tensor):
-    """(xhat, inv) of x's per-(sample, channel) statistics, recomputed."""
+    """(xhat, inv) of x's per-(sample, channel) statistics, recomputed in
+    f32 (``xf = x.astype(f32)``, ``in_gate_kernel.py:164``)."""
+    x = x.float()
     dims = tuple(range(2, x.ndim))
     mean = x.mean(dims, keepdim=True)
     inv = torch.rsqrt((x - mean).square().mean(dims, keepdim=True) + EPS)
@@ -179,8 +203,8 @@ def _affine_view(v: torch.Tensor, ndim: int) -> torch.Tensor:
 
 def in_backward(dz: torch.Tensor, xhat: torch.Tensor, inv: torch.Tensor,
                 scale: torch.Tensor):
-    """Gradient of z = xhat * scale + bias: (dx, dscale, dbias)
-    (``in_gate_kernel.py:161-174``)."""
+    """Gradient of z = xhat * scale + bias: (dx, dscale, dbias), all f32
+    (``in_gate_kernel.py:161-174``); dz is f32."""
     dims = tuple(range(2, dz.ndim))
     dscale = (dz * xhat).sum((0,) + dims)
     dbias = dz.sum((0,) + dims)
@@ -200,7 +224,8 @@ class _InstanceNormFn(torch.autograd.Function):
     def backward(ctx, dy):
         x, scale, _ = ctx.saved_tensors
         xhat, inv = _normalized(x)
-        return in_backward(dy, xhat, inv, scale)
+        dx, dscale, dbias = in_backward(dy.float(), xhat, inv, scale)
+        return dx.to(x.dtype), dscale, dbias
 
 
 class _InstanceNormSwishFn(torch.autograd.Function):
@@ -216,7 +241,9 @@ class _InstanceNormSwishFn(torch.autograd.Function):
         xhat, inv = _normalized(x)
         z = xhat * _affine_view(scale, x.ndim) + _affine_view(bias, x.ndim)
         s = torch.sigmoid(z)
-        return in_backward(dy * (s + z * s * (1.0 - s)), xhat, inv, scale)
+        dz = dy.float() * (s + z * s * (1.0 - s))
+        dx, dscale, dbias = in_backward(dz, xhat, inv, scale)
+        return dx.to(x.dtype), dscale, dbias
 
 
 class _InstanceNormGluFn(torch.autograd.Function):
@@ -235,9 +262,10 @@ class _InstanceNormGluFn(torch.autograd.Function):
         ghat, ig = _normalized(g)
         yh = hhat * _affine_view(sh, hg.ndim) + _affine_view(bh, hg.ndim)
         s = torch.sigmoid(ghat * _affine_view(sg, hg.ndim) + _affine_view(bg, hg.ndim))
-        dh, dsh, dbh = in_backward(dy * s, hhat, ih, sh)
-        dg, dsg, dbg = in_backward(dy * yh * s * (1.0 - s), ghat, ig, sg)
-        return torch.cat([dh, dg], dim=1), dsh, dbh, dsg, dbg
+        dyf = dy.float()
+        dh, dsh, dbh = in_backward(dyf * s, hhat, ih, sh)
+        dg, dsg, dbg = in_backward(dyf * yh * s * (1.0 - s), ghat, ig, sg)
+        return torch.cat([dh, dg], dim=1).to(hg.dtype), dsh, dbh, dsg, dbg
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,13 @@ whose autograd Functions give them gradients. The JAX package's ways of lowering
 through XLA (``tap_conv``, ``paired_conv``, ``conv1d_k3_matmul``) and its
 weight permutations have no counterpart: in NCHW the torch layout is already
 what the kernels read.
+
+Compute dtype: each conv runs in its input's dtype, its f32 weight and bias
+cast to it, as ``flax_dtypes.promote_dtype`` casts them in JAX
+(``layers.py:113-116, 313``); the models cast their input once, to their
+``dtype``. Parameters stay f32. Each norm runs the port's kernel (``fused``,
+the default) or, with ``fused=False``, its plain PyTorch version, which
+autograd differentiates: the JAX package's ``fused_norms=False`` XLA path.
 """
 
 from __future__ import annotations
@@ -23,7 +30,10 @@ from torch import nn
 from maskcyclegan_vc_tpu_torch.ops.in_gate import (
     instance_norm,
     instance_norm_glu,
+    instance_norm_glu_plain,
+    instance_norm_plain,
     instance_norm_swish,
+    instance_norm_swish_plain,
 )
 
 
@@ -32,19 +42,36 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def conv(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``module``'s convolution (an ``nn.Conv1d`` or ``nn.Conv2d`` with zero
+    padding) in x's dtype."""
+    fn = F.conv2d if module.weight.ndim == 4 else F.conv1d
+    return fn(x, module.weight.to(x.dtype), module.bias.to(x.dtype), module.stride,
+              module.padding, module.dilation, module.groups)
+
+
 class InstanceNorm(nn.Module):
     """Affine InstanceNorm over every axis after the channel (torch
     ``InstanceNorm{1,2}d(affine=True)`` numerics), optionally masked by
-    per-sample valid lengths along the last (time) axis."""
+    per-sample valid lengths along the last (time) axis. ``fused`` chooses
+    the kernel, else the plain version."""
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, fused: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
+        self.fused = fused
 
     def forward(self, x: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return instance_norm(x, self.weight, self.bias, lengths)
+        return norm_fn(self, instance_norm, instance_norm_plain)(
+            x, self.weight, self.bias, lengths)
+
+
+def norm_fn(norm: InstanceNorm, kernel, plain):
+    """``kernel``, the port's kernel of ``norm``'s epilogue, or its
+    ``plain`` version where ``norm`` was built with ``fused=False``."""
+    return kernel if norm.fused else plain
 
 
 def init_conv_params(module: nn.Module, generator: torch.Generator) -> None:
@@ -65,7 +92,8 @@ def init_conv_params(module: nn.Module, generator: torch.Generator) -> None:
 def swish_instance_norm(x: torch.Tensor, norm: InstanceNorm,
                         lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """swish(norm(x)) in one kernel: the discriminator's downsample epilogue."""
-    return instance_norm_swish(x, norm.weight, norm.bias, lengths)
+    fn = norm_fn(norm, instance_norm_swish, instance_norm_swish_plain)
+    return fn(x, norm.weight, norm.bias, lengths)
 
 
 def gated_conv(x: torch.Tensor, conv_h: nn.Module, norm_h: InstanceNorm,
@@ -77,12 +105,12 @@ def gated_conv(x: torch.Tensor, conv_h: nn.Module, norm_h: InstanceNorm,
     kernels concatenated along the output channels; its (B, 2C, ...) output
     goes whole to the IN-GLU kernel, which reads h and g as channel halves.
     """
-    conv = F.conv2d if conv_h.weight.ndim == 4 else F.conv1d
-    hg = conv(x, torch.cat([conv_h.weight, conv_g.weight]),
-              torch.cat([conv_h.bias, conv_g.bias]),
-              conv_h.stride, conv_h.padding)
-    return instance_norm_glu(hg, norm_h.weight, norm_h.bias,
-                             norm_g.weight, norm_g.bias, lengths)
+    fn = F.conv2d if conv_h.weight.ndim == 4 else F.conv1d
+    hg = fn(x, torch.cat([conv_h.weight, conv_g.weight]).to(x.dtype),
+            torch.cat([conv_h.bias, conv_g.bias]).to(x.dtype),
+            conv_h.stride, conv_h.padding)
+    glu = norm_fn(norm_h, instance_norm_glu, instance_norm_glu_plain)
+    return glu(hg, norm_h.weight, norm_h.bias, norm_g.weight, norm_g.bias, lengths)
 
 
 class GatedConv2d(nn.Module):
@@ -90,14 +118,14 @@ class GatedConv2d(nn.Module):
     ``convLayer`` = [conv, IN] and ``convLayer_gates`` = [conv, IN]."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
-                 stride, padding):
+                 stride, padding, fused: bool = True):
         super().__init__()
         self.convLayer = nn.ModuleList([
             nn.Conv2d(in_channels, out_channels, kernel_size, stride, padding),
-            InstanceNorm(out_channels)])
+            InstanceNorm(out_channels, fused)])
         self.convLayer_gates = nn.ModuleList([
             nn.Conv2d(in_channels, out_channels, kernel_size, stride, padding),
-            InstanceNorm(out_channels)])
+            InstanceNorm(out_channels, fused)])
 
     def forward(self, x: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:

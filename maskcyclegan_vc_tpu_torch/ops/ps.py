@@ -10,6 +10,10 @@ numerics on the shuffled tensor. ``lengths`` counts the valid frames of the
 *shuffled* time axis (2W wide), as ``tm_up1`` and ``tm_up2`` do in the JAX
 generator.
 
+x is f32 or bf16, as the Pallas kernels take it; y, dy and dx are in x's
+dtype, and scale, bias, the statistics, dscale and dbias are f32. Every
+kernel has one C entry per dtype, with its own launch count.
+
 ``pixel_shuffle_in_swish`` launches the CUDA forward (``csrc/ps_in_swish.cu``)
 for a tensor on the card and runs ``pixel_shuffle_in_swish_plain`` for a
 tensor on the CPU. Where an input requires grad it runs through an
@@ -29,8 +33,9 @@ The backward takes the JAX package's two routes (``_sis_bwd``,
 On the TPU the budget bounds the fused kernel's VMEM blocks; the card has
 no such limit, but the port keeps it so that both packages run the same
 formulas at every crop size (the full-width generator's upSample2 takes the
-split route from 137 frames, upSample1 from 273), and since it is the JAX
-package's only path through K6. On the CPU both routes run plain versions.
+split route from 137 frames, upSample1 from 273; in bf16, whose bytes are
+half, from 273 and 545), and since it is the JAX package's only path
+through K6. On the CPU both routes run plain versions.
 
 ``pixel_shuffle`` (K7) and ``inverse_pixel_shuffle`` (K6) are the bare
 permutations, ``csrc/pixel_shuffle.cu``: each is the other's transpose, so
@@ -47,21 +52,36 @@ import torch.nn.functional as F
 from maskcyclegan_vc_tpu_torch.ops.cuda_lib import INT, PTR, CudaKernel
 from maskcyclegan_vc_tpu_torch.ops.in_gate import (
     EPS,
+    instance_norm_f32,
     check_args,
-    instance_norm_plain,
     wants_grad,
 )
 
-PS_IN_SWISH_KERNEL = CudaKernel("ps_in_swish", "ps_in_swish_forward",
-                                [PTR, PTR, PTR, PTR, PTR, PTR, PTR,
-                                 INT, INT, INT, INT, PTR])
-PS_IN_SWISH_BWD_KERNEL = CudaKernel("ps_in_swish", "ps_in_swish_backward",
-                                    [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
-                                     INT, INT, INT, INT, PTR])
-SHUFFLE_KERNEL = CudaKernel("pixel_shuffle", "pixel_shuffle_forward",
-                            [PTR, PTR, INT, INT, INT, INT, PTR])
+_FWD_ARGS = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR]
+_BWD_ARGS = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR]
+_SHUFFLE_ARGS = [PTR, PTR, INT, INT, INT, INT, PTR]
+PS_IN_SWISH_KERNEL = CudaKernel("ps_in_swish", "ps_in_swish_forward", _FWD_ARGS)
+PS_IN_SWISH_BWD_KERNEL = CudaKernel("ps_in_swish", "ps_in_swish_backward", _BWD_ARGS)
+SHUFFLE_KERNEL = CudaKernel("pixel_shuffle", "pixel_shuffle_forward", _SHUFFLE_ARGS)
 INV_SHUFFLE_KERNEL = CudaKernel("pixel_shuffle", "inverse_pixel_shuffle_forward",
-                                [PTR, PTR, INT, INT, INT, INT, PTR])
+                                _SHUFFLE_ARGS)
+# The entry of each kernel for each dtype of x.
+ENTRIES = {
+    "ps_in_swish": {
+        torch.float32: PS_IN_SWISH_KERNEL,
+        torch.bfloat16: CudaKernel("ps_in_swish", "ps_in_swish_forward_bf16", _FWD_ARGS)},
+    "ps_in_swish_bwd": {
+        torch.float32: PS_IN_SWISH_BWD_KERNEL,
+        torch.bfloat16: CudaKernel("ps_in_swish", "ps_in_swish_backward_bf16", _BWD_ARGS)},
+    "shuffle": {
+        torch.float32: SHUFFLE_KERNEL,
+        torch.bfloat16: CudaKernel("pixel_shuffle", "pixel_shuffle_forward_bf16",
+                                   _SHUFFLE_ARGS)},
+    "inv_shuffle": {
+        torch.float32: INV_SHUFFLE_KERNEL,
+        torch.bfloat16: CudaKernel("pixel_shuffle", "inverse_pixel_shuffle_forward_bf16",
+                                   _SHUFFLE_ARGS)},
+}
 
 # ``_BWD_VMEM_BUDGET`` of ps_kernel.py: past it the backward takes the split
 # route. Read at each call, so a test may patch it.
@@ -71,9 +91,10 @@ BWD_BUDGET_BYTES = 32 << 20
 def pixel_shuffle_in_swish_plain(x: torch.Tensor, scale: torch.Tensor,
                                  bias: torch.Tensor,
                                  lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """swish(IN(pixel_shuffle(x, 2))) in plain PyTorch."""
-    z = instance_norm_plain(F.pixel_shuffle(x, 2), scale, bias, lengths)
-    return z * torch.sigmoid(z)
+    """swish(IN(pixel_shuffle(x, 2))) in plain PyTorch, computed in f32 and
+    rounded once to x's dtype."""
+    z = instance_norm_f32(F.pixel_shuffle(x, 2), scale, bias, lengths)
+    return (z * torch.sigmoid(z)).to(x.dtype)
 
 
 def pixel_shuffle_stats_plain(x: torch.Tensor):
@@ -91,11 +112,13 @@ def pixel_shuffle_in_swish_backward_plain(x: torch.Tensor, dy: torch.Tensor,
                                           mean: torch.Tensor, inv: torch.Tensor):
     """(dx, dscale, dbias) of the unmasked function from the forward's
     statistics: the formulas of ``_sis_bwd_xla`` (``ps_kernel.py:314-336``)
-    over the inverse shuffle of dy."""
+    over the inverse shuffle of dy, in f32. dx uses dz rounded to x's dtype,
+    as K5 and the Pallas kernel use the dz they park in dx
+    (``ps_kernel.py:233, 251``); the sums take dz unrounded."""
     B, C4, H, W = x.shape
     C, n = C4 // 4, 4 * H * W
-    xs = x.reshape(B, C, n)
-    dys = F.pixel_unshuffle(dy, 2).reshape(B, C, n)
+    xs = x.float().reshape(B, C, n)
+    dys = F.pixel_unshuffle(dy, 2).float().reshape(B, C, n)
     m, iv = mean[..., None], inv[..., None]
     a = scale[None, :, None] * iv
     z = xs * a + (bias[None, :, None] - m * a)
@@ -104,8 +127,9 @@ def pixel_shuffle_in_swish_backward_plain(x: torch.Tensor, dy: torch.Tensor,
     sdz = dz.sum(-1, keepdim=True)
     dsc = iv * ((dz * xs).sum(-1, keepdim=True) - m * sdz)
     xhat = (xs - m) * iv
-    dx = a * (dz - sdz / n - xhat * dsc / n)
-    return dx.reshape(x.shape), dsc.sum((0, 2)), sdz.sum((0, 2))
+    parked = dz.to(x.dtype).float()
+    dx = a * (parked - sdz / n - xhat * dsc / n)
+    return dx.reshape(x.shape).to(x.dtype), dsc.sum((0, 2)), sdz.sum((0, 2))
 
 
 def _check(x: torch.Tensor):
@@ -124,15 +148,15 @@ def inverse_pixel_shuffle_plain(dy: torch.Tensor) -> torch.Tensor:
     return F.pixel_unshuffle(dy, 2)
 
 
-def _launch_shuffle(kernel: CudaKernel, src: torch.Tensor) -> torch.Tensor:
-    """K7 (``SHUFFLE_KERNEL``) on a (B, 4C, H, W) tensor, or K6 on a
-    (B, C, 2H, 2W) one: one launch on the card, the plain version on the
-    CPU."""
+def _launch_shuffle(kernel: str, src: torch.Tensor) -> torch.Tensor:
+    """K7 (``kernel`` "shuffle") on a (B, 4C, H, W) tensor, or K6
+    ("inv_shuffle") on a (B, C, 2H, 2W) one: one launch of the entry for
+    src's dtype on the card, the plain version on the CPU."""
     if src.device.type == "cpu":
-        plain = pixel_shuffle_plain if kernel is SHUFFLE_KERNEL else inverse_pixel_shuffle_plain
+        plain = pixel_shuffle_plain if kernel == "shuffle" else inverse_pixel_shuffle_plain
         return plain(src)
     check_args(src, src.shape[1], (), None)
-    if kernel is SHUFFLE_KERNEL:
+    if kernel == "shuffle":
         B, C, H, W = _check(src)
         out = torch.empty((B, C, 2 * H, 2 * W), device=src.device, dtype=src.dtype)
     else:
@@ -140,18 +164,18 @@ def _launch_shuffle(kernel: CudaKernel, src: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"expected (B, C, 2H, 2W), got {tuple(src.shape)}")
         B, C, H, W = src.shape[0], src.shape[1], src.shape[2] // 2, src.shape[3] // 2
         out = torch.empty((B, 4 * C, H, W), device=src.device, dtype=src.dtype)
-    if src.data_ptr() % 8:
-        raise ValueError("expected an 8-byte aligned tensor")
+    if src.data_ptr() % (2 * src.element_size()):
+        raise ValueError("expected a tensor aligned to two elements")
     with torch.cuda.device(src.device):
-        kernel(src.data_ptr(), out.data_ptr(), B, C, H, W,
-               torch.cuda.current_stream().cuda_stream)
+        ENTRIES[kernel][src.dtype](src.data_ptr(), out.data_ptr(), B, C, H, W,
+                                   torch.cuda.current_stream().cuda_stream)
     return out
 
 
 class _PixelShuffleFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        return _launch_shuffle(SHUFFLE_KERNEL, x)
+        return _launch_shuffle("shuffle", x)
 
     @staticmethod
     def backward(ctx, dy):
@@ -161,7 +185,7 @@ class _PixelShuffleFn(torch.autograd.Function):
 class _InversePixelShuffleFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dy):
-        return _launch_shuffle(INV_SHUFFLE_KERNEL, dy)
+        return _launch_shuffle("inv_shuffle", dy)
 
     @staticmethod
     def backward(ctx, dx):
@@ -172,14 +196,14 @@ def pixel_shuffle(x: torch.Tensor) -> torch.Tensor:
     """K7: (B, 4C, H, W) PixelShuffle-ordered -> (B, C, 2H, 2W)."""
     if torch.is_grad_enabled() and x.requires_grad:
         return _PixelShuffleFn.apply(x)
-    return _launch_shuffle(SHUFFLE_KERNEL, x)
+    return _launch_shuffle("shuffle", x)
 
 
 def inverse_pixel_shuffle(dy: torch.Tensor) -> torch.Tensor:
     """K6: (B, C, 2H, 2W) -> (B, 4C, H, W) PixelShuffle-ordered."""
     if torch.is_grad_enabled() and dy.requires_grad:
         return _InversePixelShuffleFn.apply(dy)
-    return _launch_shuffle(INV_SHUFFLE_KERNEL, dy)
+    return _launch_shuffle("inv_shuffle", dy)
 
 
 def _forward(x, scale, bias, lengths=None, stats=False):
@@ -194,11 +218,12 @@ def _forward(x, scale, bias, lengths=None, stats=False):
         mean = torch.empty((B, C), device=x.device, dtype=torch.float32)
         inv = torch.empty_like(mean)
     with torch.cuda.device(x.device):
-        PS_IN_SWISH_KERNEL(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                           None if lengths is None else lengths.data_ptr(),
-                           y.data_ptr(), None if mean is None else mean.data_ptr(),
-                           None if inv is None else inv.data_ptr(), B, C, H, W,
-                           torch.cuda.current_stream().cuda_stream)
+        ENTRIES["ps_in_swish"][x.dtype](
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            None if lengths is None else lengths.data_ptr(),
+            y.data_ptr(), None if mean is None else mean.data_ptr(),
+            None if inv is None else inv.data_ptr(), B, C, H, W,
+            torch.cuda.current_stream().cuda_stream)
     return y, mean, inv
 
 
@@ -213,27 +238,29 @@ def pixel_shuffle_in_swish_backward(x: torch.Tensor, dy: torch.Tensor,
                                     scale: torch.Tensor, bias: torch.Tensor,
                                     mean: torch.Tensor, inv: torch.Tensor):
     """(dx, dscale, dbias) of the unmasked function; dscale and dbias are
-    summed over the batch. dy may be non-contiguous (a batch slice, or a
-    checkpoint's recompute): it is made contiguous before the launch."""
+    summed over the batch. dy, in x's dtype, may be non-contiguous (a batch
+    slice, or a checkpoint's recompute): it is made contiguous before the
+    launch. mean and inv are the forward's f32 statistics."""
     B, C, H, W = _check(x)
     check_args(x, C, (scale, bias), None)
     dy = dy.contiguous()
-    for name, t, shape in (("dy", dy, (B, C, 2 * H, 2 * W)), ("mean", mean, (B, C)),
-                           ("inv", inv, (B, C))):
-        if t.shape != shape or t.dtype != torch.float32 or t.device != x.device \
+    for name, t, shape, dtype in (("dy", dy, (B, C, 2 * H, 2 * W), x.dtype),
+                                  ("mean", mean, (B, C), torch.float32),
+                                  ("inv", inv, (B, C), torch.float32)):
+        if t.shape != shape or t.dtype != dtype or t.device != x.device \
                 or not t.is_contiguous():
-            raise ValueError(f"expected contiguous float32 {name} of shape "
-                             f"{shape} on {x.device}, got {tuple(t.shape)}")
+            raise ValueError(f"expected contiguous {dtype} {name} of shape "
+                             f"{shape} on {x.device}, got {t.dtype} {tuple(t.shape)}")
     if x.device.type == "cpu":
         return pixel_shuffle_in_swish_backward_plain(x, dy, scale, bias, mean, inv)
     dx = torch.empty_like(x)
     dscale = torch.empty((B, C), device=x.device, dtype=torch.float32)
     dbias = torch.empty_like(dscale)
     with torch.cuda.device(x.device):
-        PS_IN_SWISH_BWD_KERNEL(x.data_ptr(), dy.data_ptr(), scale.data_ptr(),
-                               bias.data_ptr(), mean.data_ptr(), inv.data_ptr(),
-                               dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
-                               B, C, H, W, torch.cuda.current_stream().cuda_stream)
+        ENTRIES["ps_in_swish_bwd"][x.dtype](
+            x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            mean.data_ptr(), inv.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+            dbias.data_ptr(), B, C, H, W, torch.cuda.current_stream().cuda_stream)
     return dx, dscale.sum(0), dbias.sum(0)
 
 
@@ -247,18 +274,19 @@ def pixel_shuffle_in_swish_backward_split(x: torch.Tensor, dy: torch.Tensor,
                                           scale: torch.Tensor, bias: torch.Tensor):
     """(dx, dscale, dbias) of the unmasked function, dscale and dbias summed
     over the batch: ``_sis_bwd_xla`` (``ps_kernel.py:314-336``). K6 brings dy
-    into x's layout; the statistics are recomputed from x in one pass,
-    rsqrt(max(E[x^2] - E[x]^2, 0) + eps), not taken from the forward."""
+    into x's layout, in dy's dtype; the rest is f32, the statistics
+    recomputed from x in one pass, rsqrt(max(E[x^2] - E[x]^2, 0) + eps), not
+    taken from the forward. dx leaves in x's dtype."""
     B, C, H, W = _check(x)
     check_args(x, C, (scale, bias), None)
     dy = dy.contiguous()
-    if dy.shape != (B, C, 2 * H, 2 * W) or dy.dtype != torch.float32 \
+    if dy.shape != (B, C, 2 * H, 2 * W) or dy.dtype != x.dtype \
             or dy.device != x.device:
-        raise ValueError(f"expected float32 dy of shape {(B, C, 2 * H, 2 * W)} on "
-                         f"{x.device}, got {tuple(dy.shape)}")
+        raise ValueError(f"expected {x.dtype} dy of shape {(B, C, 2 * H, 2 * W)} on "
+                         f"{x.device}, got {dy.dtype} {tuple(dy.shape)}")
     n = 4 * H * W
-    dyq = inverse_pixel_shuffle(dy).reshape(B, C, n)
-    xs = x.reshape(B, C, n)
+    dyq = inverse_pixel_shuffle(dy).float().reshape(B, C, n)
+    xs = x.float().reshape(B, C, n)
     mean = xs.mean(-1, keepdim=True)
     var = ((xs * xs).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
     inv = torch.rsqrt(var + EPS)
@@ -270,7 +298,7 @@ def pixel_shuffle_in_swish_backward_split(x: torch.Tensor, dy: torch.Tensor,
     sdz = dz.sum(-1, keepdim=True)
     sdzx = (dz * xhat).sum(-1, keepdim=True)
     dx = (sc * inv) * (dz - sdz / n - xhat * sdzx / n)
-    return dx.reshape(x.shape), sdzx.sum((0, 2)), sdz.sum((0, 2))
+    return dx.reshape(x.shape).to(x.dtype), sdzx.sum((0, 2)), sdz.sum((0, 2))
 
 
 class _PixelShuffleInSwishFn(torch.autograd.Function):

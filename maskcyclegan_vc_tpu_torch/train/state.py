@@ -28,10 +28,16 @@ D_NAMES = ("A", "B", "A2", "B2")
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Model and optimizer construction. Compute is f32 with TF32 off; the
-    JAX package's lowering knobs (dtype, precision, fused_norms, k3_matmul,
-    split_gated_conv) have no counterpart: the port's kernels always run
-    on the card."""
+    """Model and optimizer construction, with the JAX package's names.
+
+    ``dtype``: the models' compute dtype (None: f32; ``torch.bfloat16``);
+    parameters, Adam's moments and checkpoints stay f32 whatever it is.
+    ``precision``: the convolutions' and matmuls' precision, read by
+    ``utils.device.precision_scope`` (None, "highest" or "float32": true
+    f32, TF32 off; "high", "tensorfloat32" or "default": TF32).
+    ``fused_norms``: the port's norm kernels (True), or their plain PyTorch
+    versions (False), the JAX package's XLA path. The JAX package's other
+    lowering knobs (k3_matmul, split_gated_conv) have no counterpart."""
 
     schedule: ScheduleConfig = dataclasses.field(default_factory=ScheduleConfig)
     n_mels: int = 80
@@ -41,6 +47,9 @@ class TrainConfig:
     adam_b2: float = 0.999
     adam_eps: float = 1e-8
     include_dead_params: bool = True
+    dtype: Optional[torch.dtype] = None
+    precision: Optional[str] = None
+    fused_norms: bool = True
     remat: bool = False  # recompute each G forward of the G step in its backward
     # Batch same-params forwards (fake, identity and cycle rows through one
     # generator call; each D's real and fake pair through one call).
@@ -110,11 +119,12 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, device="cpu",
     for A, B, A2, B2, as the JAX package seeds them), and both optimizers
     (``make_optimizer``'s ``capturable``)."""
     device = torch.device(device)
-    g = {name: Generator(cfg.n_mels, cfg.residual_channels, device=device,
-                         generator=torch.Generator().manual_seed(seed + i))
+    kw = dict(device=device, dtype=cfg.dtype, fused_norms=cfg.fused_norms)
+    g = {name: Generator(cfg.n_mels, cfg.residual_channels,
+                         generator=torch.Generator().manual_seed(seed + i), **kw)
          for i, name in enumerate(G_NAMES)}
-    d = {name: Discriminator(cfg.residual_channels, cfg.include_dead_params, device=device,
-                             generator=torch.Generator().manual_seed(seed + 2 + i))
+    d = {name: Discriminator(cfg.residual_channels, cfg.include_dead_params,
+                             generator=torch.Generator().manual_seed(seed + 2 + i), **kw)
          for i, name in enumerate(D_NAMES)}
     state = TrainState(0, g, d, None, None)
     state.g_opt = make_optimizer(cfg, state.g_params(), capturable)

@@ -33,12 +33,13 @@ METRICS = ("g_loss", "d_loss", "identity_lambda", "g_adv_loss", "g_cycle_loss",
 LOGGED_METRICS = tuple(k for k in METRICS if k != "identity_lambda")
 
 
+# The losses are f32 whatever the compute dtype (JAX ``step.py:30-35``).
 def _lsgan(pred: torch.Tensor, target: float) -> torch.Tensor:
-    return (target - pred).square().mean()
+    return (target - pred.float()).square().mean()
 
 
 def _l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return (a - b).abs().mean()
+    return (a.float() - b.float()).abs().mean()
 
 
 def make_loss_fns(cfg: TrainConfig, with_identity: bool = True):

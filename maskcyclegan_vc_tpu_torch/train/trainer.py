@@ -13,6 +13,12 @@ resumes the batch stream of an uninterrupted run, in either mode:
 - otherwise one step at a time from the host, the device read only at the
   print cadence and at the epoch's end.
 
+``dtype``, ``precision`` and ``fused_norms`` resolve as the JAX trainer's
+do (``train/trainer.py:137-151``) on a backend that is not a TPU: ``auto``
+is float32, and the kernels on the card. ``precision`` holds for the whole
+run (``utils.device.precision_scope``) and is restored after it. The plot's
+conversions run in f32, as the JAX trainer's do.
+
 At each epoch's end every step's logged losses are checked for finiteness,
 and a failing epoch's per-step values are written to the log before the run
 stops. However the loop ends, an in-flight checkpoint write is flushed and
@@ -25,6 +31,8 @@ import dataclasses
 import os
 import time
 from typing import Optional
+
+import torch
 
 from maskcyclegan_vc_tpu_torch.cli.test import make_convert_fn
 from maskcyclegan_vc_tpu_torch.data.griffin_lim import decode_mel_griffin_lim
@@ -50,7 +58,9 @@ from maskcyclegan_vc_tpu_torch.train.schedules import ScheduleConfig
 from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, create_train_state
 from maskcyclegan_vc_tpu_torch.train.step import LOGGED_METRICS, as_train_step, make_update
 from maskcyclegan_vc_tpu_torch.utils.debug import check_finite
-from maskcyclegan_vc_tpu_torch.utils.device import resolve_device
+from maskcyclegan_vc_tpu_torch.utils.device import allows_tf32, precision_scope, resolve_device
+
+DTYPES = {"auto": None, "float32": None, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass
@@ -96,12 +106,24 @@ class TrainerArgs:
     # "auto": the four panels decoded to audio at plot cadence, by MelGAN
     # with vocoder_ckpt, else by Griffin-Lim (32 iterations); "off": none.
     plot_audio: str = "auto"
+    # Compute dtype: "auto" (float32 off a TPU, as in the JAX trainer),
+    # "float32" or "bfloat16"; parameters and checkpoints stay f32.
+    dtype: str = "auto"
+    # Convolution and matmul precision: None, "highest" or "float32" keep
+    # true f32; "high", "tensorfloat32" or "default" allow TF32.
+    precision: Optional[str] = None
+    # "auto" or "1": the norm kernels on the card; "0": their plain versions.
+    fused_norms: str = "auto"
     device: str = "cuda"
 
 
 class Trainer:
     def __init__(self, args: TrainerArgs):
         self.args = a = args
+        if a.dtype not in DTYPES or a.fused_norms not in ("auto", "0", "1"):
+            raise ValueError(f"dtype {a.dtype!r} or fused_norms {a.fused_norms!r} "
+                             f"not one of {sorted(DTYPES)}, auto/0/1")
+        allows_tf32(a.precision)  # raises for an unknown precision
         self.device = resolve_device(a.device)
         self.mels_A, self.mean_A, self.std_A = load_speaker(
             a.preprocessed_data_dir, a.speaker_A_id)
@@ -116,7 +138,9 @@ class Trainer:
             batch_size=a.batch_size, identity_loss_lambda=a.identity_loss_lambda,
             cycle_loss_lambda=a.cycle_loss_lambda, ref_compat_lr=a.ref_compat_lr)
         self.cfg = TrainConfig(schedule=sched, n_mels=a.n_mels, num_frames=a.num_frames,
-                               residual_channels=a.residual_channels, remat=a.remat)
+                               residual_channels=a.residual_channels, remat=a.remat,
+                               dtype=DTYPES[a.dtype], precision=a.precision,
+                               fused_norms=a.fused_norms != "0")
         self.steps_per_epoch = sched.steps_per_epoch
         self._identity_cutoff = a.stop_identity_after // a.batch_size
         self._step_fns = {}
@@ -151,7 +175,8 @@ class Trainer:
 
     def train(self) -> None:
         try:
-            self._run()
+            with precision_scope(self.cfg.precision):
+                self._run()
         finally:
             try:
                 self._saver.wait()
@@ -235,8 +260,8 @@ class Trainer:
         idx = epoch // max(1, self.args.epochs_per_plot) - 1
         real_A = self.mels_A[idx % len(self.mels_A)]
         real_B = self.mels_B[idx % len(self.mels_B)]
-        fake_B = make_convert_fn(self.state.g["A2B"])(real_A)
-        fake_A = make_convert_fn(self.state.g["B2A"])(real_B)
+        fake_B = make_convert_fn(self.state.g["A2B"].with_dtype(None))(real_A)
+        fake_A = make_convert_fn(self.state.g["B2A"].with_dtype(None))(real_B)
         panels = {"real_A_spec": real_A, "fake_B_spec": fake_B,
                   "real_B_spec": real_B, "fake_A_spec": fake_A}
         self.logger.log_spectrogram_grid(panels, epoch)

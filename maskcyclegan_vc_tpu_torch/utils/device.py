@@ -1,8 +1,16 @@
-"""Device selection for the port's entry points."""
+"""Device selection and matmul precision for the port's entry points."""
 
 from __future__ import annotations
 
+import contextlib
+from typing import Optional
+
 import torch
+
+# --precision values, as the JAX CLI takes them (jax.lax.Precision names and
+# aliases): true f32, or TF32 products on the tensor cores.
+_F32 = ("highest", "float32")
+_TF32 = ("high", "tensorfloat32", "default")
 
 
 def resolve_device(name: str = "cuda") -> torch.device:
@@ -22,3 +30,29 @@ def resolve_device(name: str = "cuda") -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device(name)
+
+
+def allows_tf32(precision: Optional[str]) -> bool:
+    """Whether ``precision`` lets convolutions and matmuls use TF32; raises
+    for a value that is not a precision. None keeps true f32, as every
+    check of the port against the CPU and the JAX package needs (the JAX
+    package's None means the backend's default, TF32 on a GPU)."""
+    if precision is None or precision in _F32:
+        return False
+    if precision in _TF32:
+        return True
+    raise ValueError(f"unknown precision {precision!r}: use one of "
+                     f"{', '.join(_F32 + _TF32)}")
+
+
+@contextlib.contextmanager
+def precision_scope(precision: Optional[str]):
+    """TF32 on or off for cuDNN and cuBLAS inside the block, as
+    ``precision`` says; the process-wide switches are restored after it."""
+    allow = allows_tf32(precision)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

@@ -16,8 +16,9 @@ again over the batch, in another order than the plain version's: f32
 summation error grows with the sum of the terms' magnitudes, so their bound
 is 1e-5 of that sum (see ``_sum_bound``). The mel frontend (K8) and the
 MelGAN stage (K9) have their tolerances stated beside their tests. The
-shuffles (K6, K7) are permutations and must be exact. The last tests run
-the train step as CUDA-graph replays against the same steps run eagerly.
+shuffles (K6, K7) are permutations and must be exact. Then the train step
+as CUDA-graph replays against the same steps run eagerly. The bf16 entries
+have their own section and tolerances at the end.
 """
 
 import numpy as np
@@ -417,13 +418,13 @@ def test_vocoder_decode_on_the_card_matches_cpu(device):
 MOMENT_BOUND = {"g": 5e-3, "d": 1e-2}
 
 
-def _tiny_training(device, remat=False):
+def _tiny_training(device, remat=False, dtype=None, fused_norms=True):
     rs = np.random.RandomState(0)
     banks = [MelBank.from_list([rs.randn(16, t).astype(np.float32) for t in (40, 47, 52, 63)],
                                32, device) for _ in range(2)]
     sched = ScheduleConfig(n_samples=4, batch_size=1, stop_identity_after=2)
     cfg = TrainConfig(schedule=sched, n_mels=16, num_frames=32, residual_channels=8,
-                      remat=remat)
+                      remat=remat, dtype=dtype, fused_norms=fused_norms)
     return cfg, banks
 
 
@@ -433,10 +434,11 @@ def _runner(cfg, banks, state):
     return StepRunner(cfg, lambda step: updates[step <= cutoff], *banks, 0, 1, 32, 25)
 
 
-def test_graph_batches_equal_the_eager_samplers(device):
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_graph_batches_equal_the_eager_samplers(device, dtype):
     """Steps 0 and 3 run eagerly (each variant's first), 1, 2, 4 and 5 as
     replays."""
-    cfg, banks = _tiny_training(device)
+    cfg, banks = _tiny_training(device, dtype=dtype)
     state = create_train_state(cfg, 0, device, capturable=True)
     runner = _runner(cfg, banks, state)
     for step in range(6):
@@ -490,3 +492,210 @@ def test_graph_trajectory_matches_eager(device, remat):
         assert a.keys() == b.keys()
         errs = _moment_errors(a, b, list(b))
         assert max(errs.values()) < MOMENT_BOUND[side], max(errs.items(), key=lambda e: e[1])
+
+
+# ---------- the bf16 entries ----------
+#
+# bf16 x, y, dy and dx; f32 vectors, statistics, dscale and dbias. Each bf16
+# entry against its plain version on the same bf16 inputs: both compute in
+# f32 and round once to bf16 (nearest even), so their outputs are at most
+# one bf16 rounding apart, rtol 2**-7 plus atol 1e-5 for values that f32
+# cancellation leaves near 0. K5's dx is computed from the dz it parks in dx
+# rounded to bf16, which the two may round to neighbouring values: that
+# difference reaches dx times a = scale * inv, so dx is held to 2**-6 of the
+# larger of |dx| and |a dz| (``_k5_dx_bound``). f32 outputs as in f32. K6
+# and K7 move bits: exact.
+ONE_BF16 = dict(atol=1e-5, rtol=2 ** -7)
+BF16_SHAPES = [(3, 5, 7), (2, 3, 4, 9), (1, 5120, 16), (2, 6, 1030), (1, 256, 40, 32),
+               (2, 33, 1, 17)]
+
+
+def _bf16_inputs(device, shape, C, n_vecs, seed):
+    x, vecs = _inputs(device, shape, C, n_vecs, seed)
+    return x.bfloat16(), vecs
+
+
+def _entry_launches(kernel):
+    """Launches of the f32 and the bf16 entry of ``kernel`` (an ENTRIES key)."""
+    entries = in_gate.ENTRIES.get(kernel) or ps.ENTRIES[kernel]
+    return entries[torch.float32].launches, entries[torch.bfloat16].launches
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+@pytest.mark.parametrize("kind", [None, "full", "mixed"])
+@pytest.mark.parametrize("kernel", ["in", "in_swish", "in_glu"])
+def test_row_kernels_bf16(device, shape, kind, kernel):
+    """K2, K3 and K1: bf16 in and out, the bf16 entry launched once and the
+    f32 entry not at all."""
+    C = shape[1]
+    gated = kernel == "in_glu"
+    x, vecs = _bf16_inputs(device, ((shape[0], 2 * C) + shape[2:]) if gated else shape, C,
+                           4 if gated else 2, 20)
+    lengths = _lengths(device, shape[0], shape[-1], kind)
+    fn, plain = {"in": (in_gate.instance_norm, in_gate.instance_norm_plain),
+                 "in_swish": (in_gate.instance_norm_swish, in_gate.instance_norm_swish_plain),
+                 "in_glu": (in_gate.instance_norm_glu, in_gate.instance_norm_glu_plain)}[kernel]
+    f32, bf16 = _entry_launches(kernel)
+    got = fn(x, *vecs, lengths)
+    torch.cuda.synchronize()
+    assert _entry_launches(kernel) == (f32, bf16 + 1)
+    want = plain(x, *vecs, lengths)
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **ONE_BF16)
+
+
+def test_single_valid_frame_bf16(device):
+    """One valid frame in bf16: the f32 results differ by up to one rounding
+    of |x*a| (``test_single_valid_frame``), then each rounds to bf16."""
+    x, (s, b) = _bf16_inputs(device, (2, 6, 9), 6, 2, 4)
+    lengths = torch.tensor([1, 1], dtype=torch.int32, device=device)
+    got = in_gate.instance_norm(x, s, b, lengths)
+    want = in_gate.instance_norm_plain(x, s, b, lengths)
+    xa = (x[..., :1].float().abs() * s[None, :, None] / 1e-5 ** 0.5).max().item()
+    torch.testing.assert_close(got.float(), want.float(), atol=2 * xa * 2.0 ** -23 + 1e-5,
+                               rtol=2 ** -7)
+    assert not got[..., 1:].any()
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 3, 5), (3, 12, 4, 7), (1, 1024, 20, 16),
+                                   (1, 512, 40, 32), (2, 132, 5, 9)])
+@pytest.mark.parametrize("kind", [None, "mixed"])
+def test_pixel_shuffle_in_swish_kernel_bf16(device, shape, kind):
+    """K4's bf16 entry, with and without its f32 statistics."""
+    x, (s, b) = _bf16_inputs(device, shape, shape[1] // 4, 2, 21)
+    lengths = _lengths(device, shape[0], 2 * shape[-1], kind)
+    before = _entry_launches("ps_in_swish")
+    got = ps.pixel_shuffle_in_swish(x, s, b, lengths)
+    y, mean, inv = ps.pixel_shuffle_in_swish_with_stats(x, s, b)
+    torch.cuda.synchronize()
+    assert _entry_launches("ps_in_swish") == (before[0], before[1] + 2)
+    assert got.dtype == y.dtype == torch.bfloat16 and mean.dtype == inv.dtype == torch.float32
+    torch.testing.assert_close(got.float(), ps.pixel_shuffle_in_swish_plain(x, s, b, lengths)
+                               .float(), **ONE_BF16)
+    torch.testing.assert_close(y.float(), ps.pixel_shuffle_in_swish_plain(x, s, b).float(),
+                               **ONE_BF16)
+    want_mean, want_inv = ps.pixel_shuffle_stats_plain(x)
+    torch.testing.assert_close(mean, want_mean, **TOL)
+    torch.testing.assert_close(inv, want_inv, **TOL)
+
+
+def _k5_dx_bound(x, dy, s, b, mean, inv, dx):
+    """1e-5 + 2**-6 max(|dx|, |a dz|), elementwise in x's layout, f32."""
+    B, C4, H, W = x.shape
+    xs = x.float().reshape(B, C4 // 4, -1)
+    a = s[None, :, None] * inv[..., None]
+    z = xs * a + (b[None, :, None] - mean[..., None] * a)
+    sg = torch.sigmoid(z)
+    dys = torch.nn.functional.pixel_unshuffle(dy.float(), 2).reshape(xs.shape)
+    a_dz = (a * dys * (sg + z * sg * (1 - sg))).reshape(x.shape)
+    return 1e-5 + 2 ** -6 * torch.maximum(dx.float().abs(), a_dz.abs())
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 20, 16), (3, 1024, 20, 16), (1, 512, 40, 32),
+                                   (2, 512, 40, 32), (3, 12, 5, 7), (1, 4, 1, 1)])
+def test_pixel_shuffle_in_swish_backward_kernel_bf16(device, shape):
+    """K5's bf16 entry against its plain version, which rounds the parked dz
+    as K5 does, and against autograd through the plain forward, which does
+    not: dx within ``_k5_dx_bound``; dscale and dbias as in f32."""
+    B, C4, H, W = shape
+    C = C4 // 4
+    x, (s, b) = _bf16_inputs(device, shape, C, 2, 22)
+    g = torch.Generator(device=device).manual_seed(23)
+    dy = torch.randn((B, C, 2 * H, 2 * W), device=device, generator=g).bfloat16()
+    _, mean, inv = ps.pixel_shuffle_in_swish_with_stats(x, s, b)
+    before = _entry_launches("ps_in_swish_bwd")
+    dx, dsc, dbi = ps.pixel_shuffle_in_swish_backward(x, dy, s, b, mean, inv)
+    torch.cuda.synchronize()
+    assert _entry_launches("ps_in_swish_bwd") == (before[0], before[1] + 1)
+    assert dx.dtype == torch.bfloat16 and dsc.dtype == dbi.dtype == torch.float32
+    want = ps.pixel_shuffle_in_swish_backward_plain(x, dy, s, b, mean, inv)
+    xr, sr, br = (t.clone().requires_grad_() for t in (x, s, b))
+    auto = torch.autograd.grad(ps.pixel_shuffle_in_swish_plain(xr, sr, br), (xr, sr, br), dy)
+    bound = _k5_dx_bound(x, dy, s, b, mean, inv, want[0])
+    dz = torch.nn.functional.pixel_unshuffle(dy.float(), 2).reshape(B, C, -1).abs()
+    for ref in (want, auto):
+        assert ((dx.float() - ref[0].float()).abs() <= bound).all()
+        for got, r in ((dsc, ref[1]), (dbi, ref[2])):
+            assert ((got - r).abs() <= _sum_bound(dz * 4.0)).all()
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 3, 5), (1, 8, 4, 7), (2, 1024, 20, 80),
+                                   (2, 512, 40, 160), (1, 512, 40, 161)])
+def test_shuffle_kernels_exact_bf16(device, shape):
+    """K7 and K6 on bf16: bit-exact, dtype kept, the bf16 entries only."""
+    x, _ = _bf16_inputs(device, shape, 1, 0, 24)
+    B, C4, H, W = shape
+    y = torch.randn((B, C4 // 4, 2 * H, 2 * W), device=device,
+                    generator=torch.Generator(device=device).manual_seed(25)).bfloat16()
+    before = _entry_launches("shuffle") + _entry_launches("inv_shuffle")
+    got_y, got_x = ps.pixel_shuffle(x), ps.inverse_pixel_shuffle(y)
+    torch.cuda.synchronize()
+    assert _entry_launches("shuffle") + _entry_launches("inv_shuffle") == \
+        (before[0], before[1] + 1, before[2], before[3] + 1)
+    assert got_y.dtype == got_x.dtype == torch.bfloat16
+    assert torch.equal(got_y, ps.pixel_shuffle_plain(x))
+    assert torch.equal(got_x, ps.inverse_pixel_shuffle_plain(y))
+
+
+def test_bf16_gradient_past_the_budget_takes_bf16_k6(device):
+    """upSample2 at 1 x 320 in bf16: 6 x 2 x 512 x 40 x 160 bytes, past
+    32 MiB, so the split route runs the bf16 K6; upSample1 there stays
+    within it."""
+    x, (s, b) = _bf16_inputs(device, (1, 512, 40, 160), 128, 2, 26)
+    x.requires_grad_()
+    assert ps.pixel_shuffle_in_swish_backward_bytes(x) > ps.BWD_BUDGET_BYTES
+    up1 = torch.empty((1, 1024, 20, 80), dtype=torch.bfloat16, device="meta")
+    assert ps.pixel_shuffle_in_swish_backward_bytes(up1) <= ps.BWD_BUDGET_BYTES
+    before = _entry_launches("inv_shuffle") + _entry_launches("ps_in_swish_bwd")
+    y = ps.pixel_shuffle_in_swish(x, s, b)
+    dy = torch.randn_like(y)
+    (dx,) = torch.autograd.grad(y, x, dy)
+    torch.cuda.synchronize()
+    assert _entry_launches("inv_shuffle") + _entry_launches("ps_in_swish_bwd") == \
+        (before[0], before[1] + 1, before[2], before[3])
+    assert dx.dtype == torch.bfloat16
+    assert torch.equal(dx, ps.pixel_shuffle_in_swish_backward_split(x.detach(), dy, s, b)[0])
+
+
+def test_wrappers_raise_on_bf16_vectors(device):
+    x, (s, b) = _bf16_inputs(device, (1, 4, 8), 4, 2, 3)
+    with pytest.raises(ValueError):  # the vectors are f32 in every entry
+        in_gate.instance_norm(x, s.bfloat16(), b.bfloat16())
+    with pytest.raises(ValueError):  # dy in another dtype than x
+        ps.pixel_shuffle_in_swish_backward(
+            torch.zeros((1, 8, 2, 3), dtype=torch.bfloat16, device=device),
+            torch.zeros((1, 2, 4, 6), device=device), s[:2], b[:2],
+            torch.zeros((1, 2), device=device), torch.ones((1, 2), device=device))
+
+
+def _all_launches():
+    """{(kernel, dtype): launches} over every entry of K1-K7."""
+    return {(k, d): e.launches for k, entries in (*in_gate.ENTRIES.items(), *ps.ENTRIES.items())
+            for d, e in entries.items()}
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_fused_norms_off_launches_no_kernel(device, dtype):
+    """``fused_norms=False``: two train steps on the card run the plain
+    versions and launch no entry of K1-K7. With the kernels the same steps
+    launch only the entries of the compute dtype. The first step's losses
+    agree: f32 to 1e-4 (summation order), bf16 to 2e-2 (the plain and kernel
+    forms may round each norm's output to neighbouring bf16 values)."""
+    losses = {}
+    for fused in (False, True):
+        cfg, banks = _tiny_training(device, dtype=dtype, fused_norms=fused)
+        state = create_train_state(cfg, 0, device)
+        step = make_train_step(cfg)
+        before = _all_launches()
+        for i in range(2):
+            state, m = step(state, sample_batch(step_generator(0, i, device), *banks, 1, 32, 25))
+            losses.setdefault(fused, [m[k].item() for k in LOGGED_METRICS])
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in _all_launches().items()}
+        want = dtype or torch.float32
+        if fused:
+            assert sum(launched.values()) > 0
+            assert not any(n for (_, d), n in launched.items() if d != want)
+        else:
+            assert not any(launched.values())
+    np.testing.assert_allclose(losses[True], losses[False], rtol=2e-2 if dtype else 1e-4)

@@ -245,9 +245,7 @@ def test_cuda_without_a_gpu_raises(corpus, monkeypatch):
     assert not glob.glob(str(corpus / "results" / "nogpu" / "ckpts" / "*"))
 
 
-@pytest.mark.parametrize("flag", [["--dtype", "float32"], ["--fused_norms", "1"],
-                                  ["--distributed"], ["--grad_allreduce_dtype", "float32"],
-                                  ["--precision", "highest"]])
+@pytest.mark.parametrize("flag", [["--distributed"], ["--grad_allreduce_dtype", "float32"]])
 def test_unported_flags_are_rejected(corpus, flag):
     with pytest.raises(SystemExit):
         train_main(_args(corpus, "flags", "--num_epochs", "1") + flag)
