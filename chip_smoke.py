@@ -59,7 +59,20 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               epoch and one 1 x 320 step: upSample2 splits (bf16 K6) and
               upSample1 takes K5, as pixel_shuffle_in_swish_backward_bytes
               predicts.
-9. kernels    each kernel against its plain PyTorch version on the card, with
+9. eval decode the benchmark's config 5 (bench.py:81-107): one training step
+              with with_eval_fake, then the MelGAN decode of its A->B
+              conversion (fake_B_eval, no denormalization) by a full-width
+              bf16 vocoder, in one function: in bf16 at 1 x 64 as CUDA-graph
+              replays (one graph per identity variant, StepRunner's) and a
+              step at a time, at 32 x 128 a step at a time, and in f32 at
+              1 x 64 as graph replays (the f32 decode, as bench.py's f32
+              run). ms per step+decode (median and spread), audio-s/s, the
+              decode's share of the device time, launches per step+decode
+              (bf16: 48/48/24/12/6 bf16 K1-K5 and 4 bf16 K9 calls, 13
+              device launches), the waveform's finiteness and range, and
+              every K9 call of one recorded step+decode against its plain
+              version.
+10. kernels   each kernel against its plain PyTorch version on the card, with
               its time, the plain version's, the library call's where one
               exists, and its bound: K1-K5 at every call site recorded in one
               431-frame conversion (unmasked and with the call's lengths) and
@@ -69,7 +82,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               step; the bf16 entries of K1-K7 likewise at the sites of the
               bf16 steps; K8 on the audio of every bucket the preprocess
               phase ran; K9 on the four stage inputs of one real 431-frame
-              decode.
+              decode, in f32 and with the bf16 vocoder in bf16.
 
 The last three lines are the kernels' JSON record, the card as nvidia-smi
 names it, and {"ok": true, "device": {...}}. Working files go to
@@ -118,7 +131,13 @@ from maskcyclegan_vc_tpu_torch.ops import cuda_lib, in_gate, melgan_stack, melsp
 from maskcyclegan_vc_tpu_torch.train.graphs import StepRunner
 from maskcyclegan_vc_tpu_torch.train.schedules import ScheduleConfig
 from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, create_train_state
-from maskcyclegan_vc_tpu_torch.train.step import LOGGED_METRICS, make_train_step, make_update
+from maskcyclegan_vc_tpu_torch.train.schedules import identity_lambda
+from maskcyclegan_vc_tpu_torch.train.step import (
+    LOGGED_METRICS,
+    as_train_step,
+    make_train_step,
+    make_update,
+)
 from maskcyclegan_vc_tpu_torch.utils.device import precision_scope, resolve_device
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -126,6 +145,7 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12    # H100 SXM, f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 on the tensor cores
 TOL = dict(atol=1e-5, rtol=1e-5)  # kernel vs plain, f32: reduction order only
 # Kernel vs plain in bf16: both compute in f32 from the same bf16 inputs and
 # round once, so they are at most one bf16 rounding apart (2**-7 of the
@@ -201,6 +221,11 @@ MEL_TOL = 5e-5
 # rtol 1e-4. A block sums up to 5C = 1280 f32 products per output in another
 # order than cuDNN, and three blocks chain.
 STAGE_TOL = 1e-4
+# K9's bf16 form against its bf16 plain version: two bf16 roundings (2**-7
+# each) of the output's largest magnitude. Both compute in f32 from the same
+# bf16 values and round at the same points; a sum within f32 rounding of a
+# bf16 tie rounds one ulp apart, and the later blocks spread that ulp.
+STAGE_TOL_BF16 = 2 * 2 ** -7
 # Waveforms in [-1, 1]: the card's decode against the CPU's and against the
 # melgan-neurips module (weight norm applied by torch), max abs. Rounding
 # through 4 up-convs and 12 blocks gives ~1e-6; a faulty stage gives O(0.01+).
@@ -388,6 +413,8 @@ KERNELS = {
 for _name, _entries in (*in_gate.ENTRIES.items(), *ps.ENTRIES.items()):
     KERNELS[f"{_name}_bf16"] = dict(KERNELS[_name], counter=_entries[torch.bfloat16],
                                     dtype=torch.bfloat16)
+KERNELS["melgan_stack_bf16"] = dict(KERNELS["melgan_stack"], dtype=torch.bfloat16,
+                                   counter=melgan_stack.ENTRIES[torch.bfloat16])
 NORM_KERNELS = ("in_glu", "in", "in_swish", "ps_in_swish", "ps_in_swish_bwd")
 
 
@@ -712,9 +739,10 @@ def phase_convert(device):
     return sites
 
 
-def profile(fn, wall_s: float, what: str) -> None:
+def profile(fn, wall_s: float, what: str):
     """Where one call's time goes: device time by kernel from torch.profiler,
-    grouped, against the unprofiled wall time."""
+    grouped, against the unprofiled wall time. Returns the device-busy ms,
+    or None where the profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -735,7 +763,7 @@ def profile(fn, wall_s: float, what: str) -> None:
     busy_us = sum(r[2] for r in rows)
     if busy_us == 0:
         print(f"profile: {what}: the profiler recorded no device time: not measured")
-        return
+        return None
     groups = {
         "the port's kernels": r"in_kernel|ps_in_swish|pixel_shuffle_kernel|melspec_kernel|"
                               r"resblock_kernel|tail_kernel",
@@ -757,6 +785,7 @@ def profile(fn, wall_s: float, what: str) -> None:
               f"in {count} launches")
     for key, count, us in sorted(rows, key=lambda r: -r[2])[:12]:
         print(f"profile:   {us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+    return busy_us / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -1047,35 +1076,41 @@ def measure_log_mel(audio_inputs, device):
 
 
 def measure_resstack(stage_calls, device):
-    """K9 on the four stage inputs of one real 431-frame decode."""
+    """K9 on the four stage inputs of one real 431-frame decode, in their
+    dtype (the bf16 vocoder's in bf16): error against the plain version of
+    that dtype, device times and the bound (bytes at the dtype's element
+    size, flops at the f32 rate or, in bf16, the dense bf16 tensor rate)."""
     r = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
     for args, kwargs in stage_calls:
         x, blocks = args[0], args[1]
         emit, tail = kwargs.get("emit_lrelu", False), kwargs.get("tail")
+        plain = melgan_stack.PLAIN[x.dtype]
+        name = entry_name("melgan_stack", x.dtype)
         with torch.inference_mode():
             got = melgan_stack.melgan_resstack(x, blocks, emit, tail)
-            want = melgan_stack.melgan_resstack_plain(x, blocks, emit, tail)
+            want = plain(x, blocks, emit, tail)
             torch.cuda.synchronize()
-        scale = want.abs().max().item()
-        err = (got - want).abs().max().item()
-        if not torch.allclose(got, want, atol=STAGE_TOL * scale, rtol=STAGE_TOL):
-            raise AssertionError(f"K9 at {tuple(x.shape)}: max abs err {err:.3g} "
-                                 f"(output scale {scale:.3g})")
+        check_stage(got, want, f"{name} at {tuple(x.shape)}")
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
         B, C, W = x.shape
         flops = B * W * (30 * C * C + (14 * C if tail is not None else 0))
-        n_w = 3 * (5 * C * C + 2 * C) + (7 * C + 1 if tail is not None else 0)
-        nbytes = 4 * (x.numel() + got.numel() + n_w)
-        t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        n_w = 3 * 5 * C * C + (7 * C if tail is not None else 0)
+        n_b = 3 * 2 * C + (1 if tail is not None else 0)  # b1, bm, b7: f32
+        nbytes = x.element_size() * (x.numel() + got.numel() + n_w) + 4 * n_b
+        rate = BF16_FLOPS_PER_S if x.dtype == torch.bfloat16 else F32_FLOPS_PER_S
+        t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
         b_ms = 1e3 * max(t_ops, t_bytes)
         reps = 20 if x.numel() < (1 << 22) else 5
         with torch.inference_mode():
             ms = device_ms(lambda: melgan_stack.melgan_resstack(x, blocks, emit, tail), reps)
-            plain_ms = device_ms(lambda: melgan_stack.melgan_resstack_plain(x, blocks, emit,
-                                                                            tail), reps)
+            plain_ms = device_ms(lambda: plain(x, blocks, emit, tail), reps)
         what = "tail" if tail is not None else ("emit_lrelu" if emit else "plain")
-        print(f"kernels: decode melgan_stack in {str(tuple(x.shape)):18s} {what:10s} "
-              f"max_abs_err {err:.3g} (output scale {scale:.3g}; tol {STAGE_TOL:g} of the "
-              f"scale + rtol {STAGE_TOL:g}) ms {ms:.5f} plain_ms {plain_ms:.5f} library_ms null "
+        tol = (f"tol {STAGE_TOL_BF16:g} of the scale" if x.dtype == torch.bfloat16 else
+               f"tol {STAGE_TOL:g} of the scale + rtol {STAGE_TOL:g}")
+        print(f"kernels: decode {name} in {str(tuple(x.shape)):18s} {what:10s} "
+              f"max_abs_err {err:.3g} (output scale {scale:.3g}; {tol}) ms {ms:.5f} "
+              f"plain_ms {plain_ms:.5f} library_ms null "
               f"bound_us {1e3 * b_ms:.3f} ({'operations' if t_ops >= t_bytes else 'bytes'}; "
               f"{flops / 1e9:.3f} GFLOP, {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved)",
               flush=True)
@@ -1084,9 +1119,23 @@ def measure_resstack(stage_calls, device):
         r["bound_ms"] += b_ms
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"kernels: decode melgan_stack sum over one 431-frame decode (4 calls): ms "
+    print(f"kernels: decode {name} sum over one 431-frame decode (4 calls): ms "
           f"{r['ms']:.5f} plain_ms {r['plain_ms']:.5f} bound_ms {r['bound_ms']:.5f}", flush=True)
     return r
+
+
+def check_stage(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """K9's output against its plain version's, in their dtype's bound;
+    returns the error over the output's scale."""
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    if got.dtype == torch.bfloat16:
+        ok = got.dtype == want.dtype and err <= STAGE_TOL_BF16 * scale
+    else:
+        ok = torch.allclose(got, want, atol=STAGE_TOL * scale, rtol=STAGE_TOL)
+    if not ok or got.shape != want.shape:
+        raise AssertionError(f"K9 {what}: max abs err {err:.3g} (output scale {scale:.3g})")
+    return err / scale
 
 
 def _log_losses(path: str):
@@ -1591,6 +1640,195 @@ def phase_long_crops_bf16(pre: str, device):
     return launches, sites, {"1x320": step_launches}
 
 
+# ---------------------------------------------------------------------------
+# The benchmark's config 5: a training step and the in-loop vocoder decode
+# ---------------------------------------------------------------------------
+
+class StepAndDecode:
+    """The update with ``with_eval_fake``, then the vocoder's decode of
+    ``fake_B_eval`` (no denormalization, as bench.py:98-105), as one update
+    function for ``StepRunner`` or ``as_train_step``. ``wav`` is the last
+    call's waveform: in a CUDA graph, the graph's own tensor, which each
+    replay overwrites; ``fake`` its input."""
+
+    def __init__(self, cfg: TrainConfig, vocoder, with_identity: bool = True):
+        self.update = make_update(cfg, with_identity, with_eval_fake=True)
+        self.vocoder = vocoder
+        self.wav = self.fake = None
+
+    def __call__(self, state, batch, lam_id):
+        metrics = self.update(state, batch, lam_id)
+        self.fake = metrics.pop("fake_B_eval")
+        with torch.no_grad():
+            self.wav = self.vocoder(self.fake)
+        return metrics
+
+
+def eval_decode_want(batch: int, frames: int, dtype) -> dict:
+    """Launches of one step+decode: the step's, and 4 K9 calls (13 device
+    launches: 3 blocks a stage, and the tail on the last) of the vocoder's
+    dtype."""
+    return dict(per_step(batch, frames, dtype), **{entry_name("melgan_stack", dtype): 4})
+
+
+def check_waveform(wav: torch.Tensor, batch: int, frames: int, dtype, what: str) -> str:
+    w = wav.float()
+    finite = bool(torch.isfinite(w).all())
+    peak = w.abs().max().item()
+    if wav.dtype != dtype or wav.shape != (batch, frames * HOP) or not finite or peak > 1.0:
+        raise AssertionError(f"eval decode: {what}: waveform {wav.dtype} {tuple(wav.shape)}, "
+                             f"finite {finite}, peak {peak}")
+    return (f"waveform {tuple(wav.shape)} {str(wav.dtype).removeprefix('torch.')}, finite, "
+            f"in [{w.min().item():.4f}, {w.max().item():.4f}], std {w.std().item():.4f}")
+
+
+def check_stage_calls(fn, what: str) -> str:
+    """Run ``fn`` once, eagerly, recording its K9 calls; each against the
+    plain version of its dtype."""
+    with capturing(melgan, "melgan_resstack") as calls:
+        fn()
+        torch.cuda.synchronize()
+    worst = 0.0
+    for args, kwargs in calls:
+        with torch.inference_mode():
+            got = melgan_stack.melgan_resstack(*args, **kwargs)
+            want = melgan_stack.PLAIN[args[0].dtype](*args, **kwargs)
+        worst = max(worst, check_stage(got, want, f"{what} at {tuple(args[0].shape)}"))
+    if len(calls) != 4:
+        raise AssertionError(f"eval decode: {what}: {len(calls)} K9 calls")
+    return f"its 4 K9 calls against the plain version: worst error {worst:.3g} of the scale"
+
+
+def decode_share(vocoder, fake, busy_ms) -> str:
+    """The decode's device time alone (a CUDA graph of decodes of the
+    step's conversion) over the step+decode's device-busy time."""
+    with torch.no_grad():
+        dec = device_ms(lambda: vocoder(fake), 5, 3)
+    if busy_ms is None:
+        return f"decode alone {dec:.3f} ms of device time; share not measured"
+    return (f"decode alone {dec:.3f} ms of device time, {100 * dec / busy_ms:.1f} % of the "
+            f"step+decode's {busy_ms:.3f} ms busy")
+
+
+def phase_eval_decode(pre: str, audio_pre: str, device, vocoder_ckpt: str):
+    """Config 5 on the card. Returns the bf16 K9 launches of the main run
+    (bf16 1 x 64 as graph replays) and the four K9 calls of a 431-frame
+    bf16 decode, for the kernels phase."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    vocoders = {f32: melgan.load_vocoder(vocoder_ckpt, device),
+                bf16: melgan.MelGANGenerator(device=device, dtype=bf16)}
+    vocoders[bf16].load_state_dict(vocoders[f32].state_dict())
+    launches = eval_decode_graphed(pre, device, vocoders[bf16], bf16, spans=3, n=10)
+    eval_decode_eager(pre, device, vocoders[bf16], bf16, 1, 64)
+    eval_decode_eager(pre, device, vocoders[bf16], bf16, 32, 128)
+    eval_decode_graphed(pre, device, vocoders[f32], f32, spans=2, n=10)
+
+    mels, mean, std = load_speaker(audio_pre, "VCC2TF1")
+    mel = mels[UTTERANCE_FRAMES.index(431)]
+    with capturing(melgan, "melgan_resstack") as stage_calls:
+        melgan.decode_mel(vocoders[bf16], mel[None], mean, std)
+    if len(stage_calls) != 4 or any(a[0].dtype != bf16 for a, _ in stage_calls):
+        raise AssertionError("the bf16 431-frame decode did not make 4 bf16 K9 calls")
+    return launches, stage_calls
+
+
+def eval_decode_graphed(pre, device, vocoder, dtype, spans: int, n: int) -> int:
+    """Step+decode at 1 x 64 as CUDA-graph replays: ``spans`` spans of
+    ``n`` steps after 2 (step 0 eager, then captured; step 1 replayed).
+    Returns the K9 launches of the run, replays counted."""
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    cfg, banks = train_setup(pre, 1, 64, device, None if dtype == torch.float32 else dtype)
+    state = create_train_state(cfg, 0, device, capturable=True)
+    fns = {wi: StepAndDecode(cfg, vocoder, wi) for wi in (True, False)}
+    runner = StepRunner(cfg, lambda step: fns[identity_lambda(cfg.schedule, step) > 0],
+                        *banks, 0, 1, 64, 25)
+    reset_counts()
+    walls = []
+    with graph_accounting() as acct:
+        runner.run(state, 2)
+        torch.cuda.synchronize()
+        for _ in range(spans):
+            t0 = time.perf_counter()
+            rows = runner.run(state, n)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0) / n)
+    launches = run_launches(acct)
+    steps = 2 + spans * n
+    want = eval_decode_want(1, 64, dtype)
+    replayed = {k: v // acct["replays"] for k, v in acct["replayed"].items() if v}
+    k9 = entry_name("melgan_stack", dtype)
+    ms = float(np.median(walls))
+    fn = fns[True]
+    wave = check_waveform(fn.wav, 1, 64, dtype, f"{name} 1 x 64 replays")
+    audio_s = 64 * HOP / SAMPLE_RATE
+    print(f"eval decode: {name} step+decode at 1 x 64 as CUDA-graph replays: {ms:.3f} ms "
+          f"(median of {spans} spans of {n}, each span's wall over its steps; spans "
+          f"{[round(w, 3) for w in walls]}, spread {max(walls) - min(walls):.3f}), "
+          f"{audio_s / (ms / 1e3):.2f} audio-s trained and decoded per s; launches per "
+          f"replayed step+decode {replayed} (expected {want}: {k9} 4 calls, 13 device "
+          f"launches); {k9} in the run {launches[k9]} over {steps} steps; "
+          f"{accounting_line(acct)}; losses finite {bool(torch.isfinite(rows).all())}; "
+          f"{wave}", flush=True)
+    if replayed != want or launches[k9] != 4 * steps or acct["captures"] != 1 \
+            or not torch.isfinite(rows).all():
+        raise AssertionError(f"eval decode: the {name} replays went wrong")
+    busy = profile(lambda: runner.run(state, 3), 3 * ms / 1e3,
+                   f"3 replayed {name} step+decodes at 1 x 64")
+    print(f"eval decode: {name} 1 x 64 replays: "
+          f"{decode_share(vocoder, fn.fake, None if busy is None else busy / 3)}", flush=True)
+    step = as_train_step(cfg, fns[True])
+    print(f"eval decode: {name} 1 x 64: one more step+decode, eagerly: "
+          f"{check_stage_calls(lambda: step(state, runner.batch), name)}", flush=True)
+    del state, runner, fns
+    torch.cuda.empty_cache()
+    return launches[k9]
+
+
+def eval_decode_eager(pre, device, vocoder, dtype, batch: int, frames: int) -> None:
+    """Step+decode a step at a time: the median of the steps after the
+    warm-up ones (10 after 3 at batch 1, 3 after 2 at batch 32), host clock
+    around each step ending in a synchronize; launches of one more, and a
+    profile."""
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    warm, timed = (3, 10) if batch == 1 else (2, 3)
+    cfg, banks = train_setup(pre, batch, frames, device, None if dtype == torch.float32 else dtype)
+    state = create_train_state(cfg, 0, device)
+    fn = StepAndDecode(cfg, vocoder)
+    step = as_train_step(cfg, fn)
+    batches = [sample_batch(step_generator(0, i, device), *banks, batch, frames, 25)
+               for i in range(warm + timed + 1)]
+    times = []
+    for i in range(warm + timed):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    ms = float(np.median(times[warm:]))
+    reset_counts()
+    state, m = step(state, batches[-1])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in counts().items() if v}
+    want = eval_decode_want(batch, frames, dtype)
+    wave = check_waveform(fn.wav, batch, frames, dtype, f"{name} {batch} x {frames}")
+    audio_s = batch * frames * HOP / SAMPLE_RATE
+    print(f"eval decode: {name} step+decode at {batch} x {frames}, a step at a time: "
+          f"{ms:.3f} ms (median of {timed} after {warm} warm-up, host clock; min "
+          f"{min(times[warm:]):.3f}, max {max(times[warm:]):.3f}), "
+          f"{audio_s / (ms / 1e3):.2f} audio-s trained and decoded per s; launches in one "
+          f"{launches} (expected {want}); losses g {float(m['g_loss']):.4f} d "
+          f"{float(m['d_loss']):.4f}; {wave}", flush=True)
+    if launches != want or not all(np.isfinite(float(v)) for v in m.values()):
+        raise AssertionError(f"eval decode: the {name} {batch} x {frames} step+decode "
+                             f"launched {launches}")
+    busy = profile(lambda: step(state, batches[0]), ms / 1e3,
+                   f"one {name} step+decode at {batch} x {frames}")
+    print(f"eval decode: {name} {batch} x {frames} a step at a time: "
+          f"{decode_share(vocoder, fn.fake, busy)}; "
+          f"{check_stage_calls(lambda: step(state, batches[1]), name)}", flush=True)
+    del state, batches, fn
+    torch.cuda.empty_cache()
+
+
 def measure_shuffles(sites, device):
     """K6 on every inverse-shuffle site, and K7 at the transposed shape, in
     the site's dtype: exact against their plain versions, with times and the
@@ -1697,6 +1935,8 @@ def main() -> int:
     bf16_long_launches, bf16_sites320, bf16_long_per = phase_long_crops_bf16(pre, device)
     long_launches.update({k: n for k, n in bf16_long_launches.items() if k.endswith("_bf16")})
     took("long crops bf16")
+    eval_launches, bf16_stage_calls = phase_eval_decode(pre, audio_pre, device, vocoder_ckpt)
+    took("eval decode")
 
     measure_sites(convert_sites, device, "convert/forward")
     step1 = measure_sites(sites1, device, "train 1x64/step")
@@ -1706,7 +1946,8 @@ def main() -> int:
     shuffles = measure_shuffles(sites320, device)
     shuffles.update(measure_shuffles(bf16_sites320, device))
     audio = {"log_mel": (measure_log_mel(mel_inputs, device), log_mel_launches),
-             "melgan_stack": (measure_resstack(stage_calls, device), stack_launches)}
+             "melgan_stack": (measure_resstack(stage_calls, device), stack_launches),
+             "melgan_stack_bf16": (measure_resstack(bf16_stage_calls, device), eval_launches)}
     took("kernels")
 
     # K1-K5, f32 then bf16: launches, the main path's CLI run (phase_train,
@@ -1740,8 +1981,9 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
     # K8: ms, plain_ms and bound_ms summed over the preprocess run's calls;
-    # K9: over the four calls of one 431-frame decode. launches: the
-    # preprocess run's and the decode run's counts.
+    # K9: over the four calls of one 431-frame decode (bf16: the bf16
+    # vocoder's). launches: the preprocess run's, the decode run's and, for
+    # bf16 K9, the bf16 1 x 64 step+decode replays' counts.
     for k, (r, n) in audio.items():
         kernels.append({
             "name": k, "route": "cuda", "source": KERNELS[k]["source"],

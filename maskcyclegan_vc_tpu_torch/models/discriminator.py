@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from maskcyclegan_vc_tpu_torch.ops.in_gate import time_mask
+from maskcyclegan_vc_tpu_torch.ops.in_gate import time_mask, widened
 from maskcyclegan_vc_tpu_torch.ops.layers import (
     InstanceNorm,
     conv,
@@ -106,7 +106,7 @@ class Discriminator(nn.Module):
             if lengths is not None:
                 lengths = halved_len(lengths)
             h = swish_instance_norm(conv(block[0], h), block[1], lengths)
-        out = torch.sigmoid(conv(self.outputConvLayer[0], h).float())[:, 0]
+        out = torch.sigmoid(widened(conv(self.outputConvLayer[0], h)))[:, 0]
         if lengths is not None:
             out = out * time_mask(lengths, out.shape[-1])[:, None, :]
         return out

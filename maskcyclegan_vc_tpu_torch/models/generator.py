@@ -35,7 +35,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from maskcyclegan_vc_tpu_torch.ops.in_gate import time_mask
+from maskcyclegan_vc_tpu_torch.ops.in_gate import time_mask, widened
 from maskcyclegan_vc_tpu_torch.ops.layers import (
     GatedConv2d,
     InstanceNorm,
@@ -182,7 +182,7 @@ class Generator(nn.Module):
             fn = norm_fn(norm, pixel_shuffle_in_swish, pixel_shuffle_in_swish_plain)
             h = fn(conv(up, h), norm.weight, norm.bias, lu)
 
-        out = conv(self.lastConvLayer, h)[:, 0].float()
+        out = widened(conv(self.lastConvLayer, h)[:, 0])
         if valid is not None:
             out = out * valid
         return out

@@ -17,6 +17,11 @@ chain on the CPU. The stages but the last emit their output pre-activated,
 and the last carries the tail, as the JAX package's fused path does, so a
 decode is four K9 calls. Inference only.
 
+``dtype`` (None, f32, or ``torch.bfloat16``) is the compute dtype, as in
+the JAX module (``models/melgan.py:88-103, 130-150``): the mel is cast to
+it at entry, every conv and K9 stage takes its f32 parameters cast to it at
+each call, and the waveform comes out in it. The parameters stay f32.
+
 ``load_melgan_state_dict`` maps a melgan-neurips ``state_dict`` (one
 ``nn.Sequential`` named ``model``, weight-normed convs as ``weight_g`` /
 ``weight_v`` pairs or plain ``weight``) onto this module's names, folding
@@ -29,11 +34,12 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from maskcyclegan_vc_tpu_torch.ops.melgan_stack import (
     DILATIONS,
-    leaky_relu,
+    LRELU_SLOPE,
     melgan_resstack,
     reflect_pad,
 )
@@ -62,8 +68,10 @@ class MelGANGenerator(nn.Module):
     """
 
     def __init__(self, n_mels: int = 80, ngf: int = 32, *, device="cpu",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         mult = 2 ** len(RATIOS)
         with torch.device("meta"):
             self.conv_in = nn.Conv1d(n_mels, mult * ngf, 7)
@@ -88,17 +96,39 @@ class MelGANGenerator(nn.Module):
                     p.zero_()
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        """(B, n_mels, T) log10-mel -> (B, T * 256) waveform in [-1, 1]."""
-        x = leaky_relu(self.conv_in(reflect_pad(mel, 3)))
+        """(B, n_mels, T) log10-mel -> (B, T * 256) waveform in [-1, 1], in
+        the compute dtype (f32 by default)."""
+        dt = self.dtype or torch.float32
+        x = leaky_relu_in(conv(self.conv_in, reflect_pad(mel.to(dt), 3)))
         for up, stage in zip(self.ups[:-1], self.stages[:-1]):
             # emitted pre-activated: the stage output only feeds lrelu -> up-conv
-            x = melgan_resstack(up(x), _block_params(stage), emit_lrelu=True)
-        return melgan_resstack(self.ups[-1](x), _block_params(self.stages[-1]),
-                               tail=(self.conv_out.weight, self.conv_out.bias))
+            x = melgan_resstack(conv(up, x), _block_params(stage, dt), emit_lrelu=True)
+        return melgan_resstack(conv(self.ups[-1], x), _block_params(self.stages[-1], dt),
+                               tail=(self.conv_out.weight.to(dt), self.conv_out.bias.to(dt)))
 
 
-def _block_params(stage: nn.ModuleList):
-    return [dict(block.named_parameters()) for block in stage]
+def conv(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``module``'s convolution (``nn.Conv1d`` unpadded, or
+    ``nn.ConvTranspose1d``) in x's dtype, its bias added to the conv's
+    output in that dtype, as the JAX module adds it (``y + bias``: two
+    roundings in bf16)."""
+    w = module.weight.to(x.dtype)
+    if isinstance(module, nn.ConvTranspose1d):
+        y = F.conv_transpose1d(x, w, None, module.stride, module.padding,
+                               module.output_padding)
+    else:
+        y = F.conv1d(x, w)
+    return y + module.bias.to(x.dtype)[:, None]
+
+
+def leaky_relu_in(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.leaky_relu`` in x's dtype: its slope is a constant of that
+    dtype, 0.2001953125 in bf16."""
+    return F.leaky_relu(x, torch.tensor(LRELU_SLOPE, dtype=x.dtype).item())
+
+
+def _block_params(stage: nn.ModuleList, dtype: torch.dtype):
+    return [{k: p.to(dtype) for k, p in block.named_parameters()} for block in stage]
 
 
 def _fold_weight_norm(g: np.ndarray, v: np.ndarray) -> np.ndarray:

@@ -57,6 +57,13 @@ ENTRIES = {
 }
 
 
+def widened(t: torch.Tensor) -> torch.Tensor:
+    """t in f32, or in f64 where it is f64: the plain versions compute in
+    f32 from bf16 and f32 values, and in f64 from f64 ones, which the
+    kernels refuse (the f64 gradient tests run the plain versions)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def time_mask(lengths: torch.Tensor, width: int) -> torch.Tensor:
     """(B,) lengths -> (B, width) {0, 1} f32 mask, 1 at valid frames."""
     t = torch.arange(width, device=lengths.device)
@@ -65,11 +72,12 @@ def time_mask(lengths: torch.Tensor, width: int) -> torch.Tensor:
 
 def instance_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                       lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Affine InstanceNorm of x (B, C, *spatial) in f32, whatever x's dtype."""
+    """Affine InstanceNorm of x (B, C, *spatial) in f32 whatever x's dtype
+    (f64 for f64 x: ``widened``)."""
     B, C = x.shape[:2]
     dims = tuple(range(2, x.ndim))
     affine_shape = (1, C) + (1,) * (x.ndim - 2)
-    xf = x.float()
+    xf = widened(x)
     if lengths is None:
         m = None
         mean = xf.mean(dims, keepdim=True)
@@ -80,8 +88,8 @@ def instance_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         denom = m.sum(dims, keepdim=True).clamp_min(1.0)
         mean = (xf * m).sum(dims, keepdim=True) / denom
         var = ((xf - mean).square() * m).sum(dims, keepdim=True) / denom
-    a = torch.rsqrt(var + EPS) * scale.float().view(affine_shape)
-    b = bias.float().view(affine_shape) - mean * a
+    a = torch.rsqrt(var + EPS) * widened(scale).view(affine_shape)
+    b = widened(bias).view(affine_shape) - mean * a
     y = xf * a + b
     return y if m is None else y * m
 

@@ -25,6 +25,7 @@ from typing import Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from maskcyclegan_vc_tpu_torch.ops.in_gate import widened
 from maskcyclegan_vc_tpu_torch.train.schedules import identity_lambda
 from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, TrainState
 
@@ -33,13 +34,14 @@ METRICS = ("g_loss", "d_loss", "identity_lambda", "g_adv_loss", "g_cycle_loss",
 LOGGED_METRICS = tuple(k for k in METRICS if k != "identity_lambda")
 
 
-# The losses are f32 whatever the compute dtype (JAX ``step.py:30-35``).
+# The losses are f32 whatever the compute dtype (JAX ``step.py:30-35``);
+# f64 from f64 values (``widened``).
 def _lsgan(pred: torch.Tensor, target: float) -> torch.Tensor:
-    return (target - pred.float()).square().mean()
+    return (target - widened(pred)).square().mean()
 
 
 def _l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return (a.float() - b.float()).abs().mean()
+    return (widened(a) - widened(b)).abs().mean()
 
 
 def make_loss_fns(cfg: TrainConfig, with_identity: bool = True):
@@ -159,12 +161,18 @@ def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
     opt.zero_grad(set_to_none=True)
 
 
-def make_update(cfg: TrainConfig, with_identity: bool = True):
+def make_update(cfg: TrainConfig, with_identity: bool = True, with_eval_fake: bool = False):
     """``update(state, batch, lam_id) -> metrics``: the G update, then the D
     update, at the learning rates the optimizers hold, with identity weight
     ``lam_id`` (a host float: within one variant of the trainer it is
     constant, the schedule's weight up to the cutoff and 0 after it). The
-    metrics are 0-dim device tensors."""
+    metrics are 0-dim device tensors.
+
+    ``with_eval_fake`` adds ``fake_B_eval``, the A->B conversion of
+    ``real_A`` by the updated generator: the ``generated_B`` that the D
+    update consumed, the same tensor (f32 in either compute dtype: the
+    generator returns f32, as JAX's does), at no extra forward (JAX ``train/step.py:172-194, 273-275``), for an in-loop
+    vocoder decode. It is not one of ``LOGGED_METRICS``."""
     g_loss_fn, d_loss_fn = make_loss_fns(cfg, with_identity)
 
     def update(state: TrainState, batch: Dict[str, torch.Tensor], lam_id: float):
@@ -181,17 +189,21 @@ def make_update(cfg: TrainConfig, with_identity: bool = True):
         metrics = {"g_loss": g_loss, "d_loss": d_loss,
                    "identity_lambda": torch.full((), lam_id, device=device),
                    **g_aux, **d_aux}
+        if with_eval_fake:
+            metrics["fake_B_eval"] = fakes["generated_B"]
         return {k: v.detach() for k, v in metrics.items()}
 
     return update
 
 
-def make_train_step(cfg: TrainConfig, with_identity: bool = True):
+def make_train_step(cfg: TrainConfig, with_identity: bool = True,
+                    with_eval_fake: bool = False):
     """``train_step(state, batch) -> (state, metrics)``; the state is
     updated in place. batch: {"real_A", "mask_A", "real_B", "mask_B"}, each
-    (B, M, T). The metrics are 0-dim device tensors: reading them is the
-    caller's choice (each read waits for the device)."""
-    return as_train_step(cfg, make_update(cfg, with_identity))
+    (B, M, T). The metrics are 0-dim device tensors, and ``fake_B_eval``
+    with ``with_eval_fake`` (``make_update``): reading them is the caller's
+    choice (each read waits for the device)."""
+    return as_train_step(cfg, make_update(cfg, with_identity, with_eval_fake))
 
 
 def as_train_step(cfg: TrainConfig, update):

@@ -699,3 +699,110 @@ def test_fused_norms_off_launches_no_kernel(device, dtype):
         else:
             assert not any(launched.values())
     np.testing.assert_allclose(losses[True], losses[False], rtol=2e-2 if dtype else 1e-4)
+
+
+# ---------- K9's bf16 form and the bf16 vocoder ----------
+#
+# The bf16 entry against the bf16 plain version on the card: both compute
+# in f32 from the same bf16 values and round at the same points, so most
+# elements are bit-equal; a sum within f32 rounding of a bf16 tie rounds
+# one ulp apart, and the later blocks spread that ulp. Bound: two bf16
+# roundings (2**-7 each) of the output's largest magnitude, the bound
+# chip_smoke.py holds every call of the main path to.
+TWO_BF16_OF_SCALE = 2 * 2 ** -7
+
+
+def _k9_launches():
+    from maskcyclegan_vc_tpu_torch.ops import melgan_stack
+
+    return tuple(melgan_stack.ENTRIES[d].launches for d in (torch.float32, torch.bfloat16))
+
+
+@pytest.mark.parametrize("B, C, W", [(1, 256, 3448), (1, 128, 27584), (1, 64, 55168),
+                                     (1, 32, 110336), (2, 256, 100), (1, 64, 10),
+                                     (3, 32, 4099), (1, 4, 1025)])
+@pytest.mark.parametrize("mode", ["plain", "emit_lrelu", "tail"])
+@pytest.mark.parametrize("weights", ["f32", "bf16"])
+def test_melgan_stage_kernel_bf16(device, B, C, W, mode, weights):
+    """The bf16 entry, with f32 weights or with the bf16 ones the bf16
+    vocoder passes, at the four stages of a 431-frame decode and ragged,
+    narrow and batched cases: bf16 out, the bf16 entry launched once."""
+    from maskcyclegan_vc_tpu_torch.ops import melgan_stack
+
+    x, blocks, tail = _stage(device, B, C, W, C + W + 1)
+    if weights == "bf16":
+        blocks = [{k: v.bfloat16() for k, v in b.items()} for b in blocks]
+        tail = tuple(t.bfloat16() for t in tail)
+    kw = dict(emit_lrelu=mode == "emit_lrelu", tail=tail if mode == "tail" else None)
+    x = x.bfloat16()
+    f32, bf16 = _k9_launches()
+    with torch.inference_mode():
+        got = melgan_stack.melgan_resstack(x, blocks, **kw)
+        torch.cuda.synchronize()
+        want = melgan_stack.melgan_resstack_plain_bf16(x, blocks, **kw)
+    assert _k9_launches() == (f32, bf16 + 1)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape == ((B, W) if mode == "tail" else (B, C, W))
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TWO_BF16_OF_SCALE * scale)
+
+
+def test_melgan_stage_reflect_edges_bf16(device):
+    """The mirrored halo in bf16: spikes near both ends, exact values that
+    bf16 holds, so every rounding is on values the two sides share."""
+    from maskcyclegan_vc_tpu_torch.ops import melgan_stack
+
+    _, blocks, _ = _stage(device, 1, 8, 40, 1)
+    x = torch.zeros((1, 8, 40), dtype=torch.bfloat16, device=device)
+    x[0, :, 5] = 1.0
+    x[0, :, 36] = -2.0
+    with torch.inference_mode():
+        got = melgan_stack.melgan_resstack(x, blocks)
+        want = melgan_stack.melgan_resstack_plain_bf16(x, blocks)
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TWO_BF16_OF_SCALE * scale)
+
+
+def test_melgan_stage_bf16_refuses_mixed_dtypes(device):
+    from maskcyclegan_vc_tpu_torch.ops import melgan_stack
+
+    x, blocks, tail = _stage(device, 1, 8, 40, 2)
+    mixed = [dict(b) for b in blocks]
+    mixed[0]["conv1.bias"] = mixed[0]["conv1.bias"].bfloat16()
+    before = _k9_launches()
+    with torch.inference_mode():
+        with pytest.raises(ValueError):
+            melgan_stack.melgan_resstack(x.bfloat16(), mixed)
+        with pytest.raises(ValueError):  # f32 x with bf16 weights
+            melgan_stack.melgan_resstack(x, [{k: v.bfloat16() for k, v in b.items()}
+                                             for b in blocks])
+        with pytest.raises(ValueError):
+            melgan_stack.melgan_resstack(x.half(), blocks)
+    assert _k9_launches() == before
+
+
+def test_bf16_vocoder_on_the_card(device):
+    """The bf16 MelGAN (cuDNN bf16 convs, four bf16 K9 calls, no f32 one)
+    against the CPU: within twice the CPU's own bf16-vs-f32 distance of the
+    CPU's f32 decode, plus two bf16 roundings of the waveform's scale."""
+    from maskcyclegan_vc_tpu_torch.models.melgan import MelGANGenerator
+
+    cpu = MelGANGenerator(80, 8, generator=torch.Generator().manual_seed(5))
+    cpu_bf16 = MelGANGenerator(80, 8, dtype=torch.bfloat16)
+    gpu = MelGANGenerator(80, 8, device=device, dtype=torch.bfloat16)
+    for m in (cpu_bf16, gpu):
+        m.load_state_dict(cpu.state_dict())
+    mel = torch.randn(2, 80, 37, generator=torch.Generator().manual_seed(6))
+    before = _k9_launches()
+    with torch.inference_mode():
+        got = gpu(mel.to(device))
+        torch.cuda.synchronize()
+        want, want_bf16 = cpu(mel), cpu_bf16(mel)
+    assert _k9_launches() == (before[0], before[1] + 4)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 37 * 256)
+    got = got.float().cpu()
+    assert torch.isfinite(got).all() and got.abs().max() <= 1.0
+    band = (want_bf16.float() - want).abs().max().item()
+    assert (got - want).abs().max().item() <= 2 * band + TWO_BF16_OF_SCALE * want.abs().max()
