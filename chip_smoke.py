@@ -82,7 +82,11 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               step; the bf16 entries of K1-K7 likewise at the sites of the
               bf16 steps; K8 on the audio of every bucket the preprocess
               phase ran; K9 on the four stage inputs of one real 431-frame
-              decode, in f32 and with the bf16 vocoder in bf16.
+              decode, in f32 and with the bf16 vocoder in bf16. K9's f32
+              form runs its products as 3xTF32 on the tensor cores: its
+              bound is the flops at 495 / 3 TFLOP/s (the f32 cores' 67
+              TFLOP/s bound printed beside it), with the achieved TFLOP/s
+              of each stage.
 
 The last three lines are the kernels' JSON record, the card as nvidia-smi
 names it, and {"ok": true, "device": {...}}. Working files go to
@@ -145,6 +149,9 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12    # H100 SXM, f32 outside the tensor cores
+# K9's f32 form takes each f32 product as three TF32 products on the tensor
+# cores (3xTF32), at 495 TFLOP/s dense TF32 (H100 SXM).
+F32_3XTF32_FLOPS_PER_S = 495e12 / 3
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 on the tensor cores
 TOL = dict(atol=1e-5, rtol=1e-5)  # kernel vs plain, f32: reduction order only
 # Kernel vs plain in bf16: both compute in f32 from the same bf16 inputs and
@@ -766,7 +773,7 @@ def profile(fn, wall_s: float, what: str):
         return None
     groups = {
         "the port's kernels": r"in_kernel|ps_in_swish|pixel_shuffle_kernel|melspec_kernel|"
-                              r"resblock_kernel|tail_kernel",
+                              r"resblock_(?:tc_)?kernel|tail_kernel",
         "convolutions (cuDNN)": r"conv|xmma|gemm|cudnn|wgrad|dgrad|fprop|winograd|implicit",
         "Adam (foreach)": r"multi_tensor_apply|foreach",
     }
@@ -1079,8 +1086,10 @@ def measure_resstack(stage_calls, device):
     """K9 on the four stage inputs of one real 431-frame decode, in their
     dtype (the bf16 vocoder's in bf16): error against the plain version of
     that dtype, device times and the bound (bytes at the dtype's element
-    size, flops at the f32 rate or, in bf16, the dense bf16 tensor rate)."""
-    r = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
+    size; flops in f32 at the 3xTF32 rate of the kernel's tensor-core
+    products, with the f32 cores' bound printed beside it, and in bf16 at
+    the dense bf16 tensor rate)."""
+    r = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, simt_bound_ms=0.0, max_abs_err=0.0)
     for args, kwargs in stage_calls:
         x, blocks = args[0], args[1]
         emit, tail = kwargs.get("emit_lrelu", False), kwargs.get("tail")
@@ -1098,9 +1107,12 @@ def measure_resstack(stage_calls, device):
         n_w = 3 * 5 * C * C + (7 * C if tail is not None else 0)
         n_b = 3 * 2 * C + (1 if tail is not None else 0)  # b1, bm, b7: f32
         nbytes = x.element_size() * (x.numel() + got.numel() + n_w) + 4 * n_b
-        rate = BF16_FLOPS_PER_S if x.dtype == torch.bfloat16 else F32_FLOPS_PER_S
+        f32 = x.dtype == torch.float32
+        rate = F32_3XTF32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S
         t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
         b_ms = 1e3 * max(t_ops, t_bytes)
+        simt_ms = 1e3 * max(flops / F32_FLOPS_PER_S, t_bytes)
+        simt = f" at 3xTF32; f32-core bound_us {1e3 * simt_ms:.3f}" if f32 else ""
         reps = 20 if x.numel() < (1 << 22) else 5
         with torch.inference_mode():
             ms = device_ms(lambda: melgan_stack.melgan_resstack(x, blocks, emit, tail), reps)
@@ -1111,16 +1123,19 @@ def measure_resstack(stage_calls, device):
         print(f"kernels: decode {name} in {str(tuple(x.shape)):18s} {what:10s} "
               f"max_abs_err {err:.3g} (output scale {scale:.3g}; {tol}) ms {ms:.5f} "
               f"plain_ms {plain_ms:.5f} library_ms null "
-              f"bound_us {1e3 * b_ms:.3f} ({'operations' if t_ops >= t_bytes else 'bytes'}; "
-              f"{flops / 1e9:.3f} GFLOP, {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved)",
-              flush=True)
+              f"bound_us {1e3 * b_ms:.3f} ({'operations' if t_ops >= t_bytes else 'bytes'}"
+              f"{simt}; {flops / 1e9:.3f} GFLOP, {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
+              f"achieved)", flush=True)
         r["ms"] += ms
         r["plain_ms"] += plain_ms
         r["bound_ms"] += b_ms
+        r["simt_bound_ms"] += simt_ms
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    simt = f" (3xTF32; f32-core bound_ms {r['simt_bound_ms']:.5f})" if f32 else ""
     print(f"kernels: decode {name} sum over one 431-frame decode (4 calls): ms "
-          f"{r['ms']:.5f} plain_ms {r['plain_ms']:.5f} bound_ms {r['bound_ms']:.5f}", flush=True)
+          f"{r['ms']:.5f} plain_ms {r['plain_ms']:.5f} bound_ms {r['bound_ms']:.5f}{simt}",
+          flush=True)
     return r
 
 

@@ -21,6 +21,8 @@ as CUDA-graph replays against the same steps run eagerly. The bf16 entries
 have their own section and tolerances at the end.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +30,7 @@ import torch
 from maskcyclegan_vc_tpu_torch.data.dataset import MelBank, sample_batch, step_generator
 from maskcyclegan_vc_tpu_torch.models import Discriminator, Generator
 from maskcyclegan_vc_tpu_torch.ops import in_gate, ps
+from maskcyclegan_vc_tpu_torch.ops.cuda_lib import CSRC
 from maskcyclegan_vc_tpu_torch.train.graphs import StepRunner
 from maskcyclegan_vc_tpu_torch.train.schedules import ScheduleConfig
 from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, create_train_state
@@ -337,7 +340,11 @@ def test_log_mel_kernel(device, B, L, pad):
 # Weights at unit gain (std 1/sqrt(fan_in)), so activations stay O(1) over
 # the three blocks. Tolerance 1e-4 of the output's largest magnitude plus
 # rtol 1e-4: a block sums up to 5C = 1280 f32 products per output in
-# another order than cuDNN, and three blocks chain.
+# another order than cuDNN, and three blocks chain. The f32 kernel's margin
+# on an H100 (PERF.md): its worst stage of a 431-frame decode lands 1.3e-6
+# of the scale from the plain chain, ~75x inside, as the f32-core kernel
+# before it did; with one tensor-core accumulator over a whole product
+# (no f32 partial sums) it was 1.6e-5, ~6x inside.
 
 
 def _stage(device, B, C, W, seed):
@@ -354,24 +361,95 @@ def _stage(device, B, C, W, seed):
     return rnd(B, C, W), blocks, tail
 
 
-# The four stages of a 431-frame decode, then ragged, narrow and batched cases.
+# The f32 kernel's tile: kTileOut outputs, max(C, 32) channels (C < 32
+# padded with zero weights) x kTileOut / max(C, 32) positions, read from the
+# source so that the edge cases follow the constant.
+_K9_TILE = re.findall(r"constexpr int kTileOut = (\d+);",
+                      (CSRC / "melgan_stack.cu").read_text())
+assert len(_K9_TILE) == 1, "kTileOut not found once in csrc/melgan_stack.cu"
+
+
+def _tile_positions(C):
+    return int(_K9_TILE[0]) // max(C, 32)
+
+
+# Every width the kernel takes at a whole number of its tiles and one position
+# past it (a last tile of one position), and batches with a ragged last tile.
+TILE_EDGES = ([(1, C, 3 * _tile_positions(C) + e) for C in (4, 8, 16, 32, 64, 128, 256)
+               for e in (0, 1)]
+              + [(3, 256, 3 * 32 + 5), (3, 128, 3 * 64 + 7), (2, 16, 3 * 256 + 3)])
+
+
+# The four stages of a 431-frame decode, then ragged, narrow and batched
+# cases, then the tile edges. One f32 call counts one f32 launch and no bf16
+# one.
 @pytest.mark.parametrize("B, C, W", [(1, 256, 3448), (1, 128, 27584), (1, 64, 55168),
                                      (1, 32, 110336), (2, 256, 100), (1, 64, 10),
-                                     (3, 32, 4099), (1, 4, 1025)])
+                                     (3, 32, 4099), (1, 4, 1025)] + TILE_EDGES)
 @pytest.mark.parametrize("mode", ["plain", "emit_lrelu", "tail"])
 def test_melgan_stage_kernel(device, B, C, W, mode):
     from maskcyclegan_vc_tpu_torch.ops import melgan_stack
 
     x, blocks, tail = _stage(device, B, C, W, C + W)
     kw = dict(emit_lrelu=mode == "emit_lrelu", tail=tail if mode == "tail" else None)
-    before = melgan_stack.MELGAN_STACK_KERNEL.launches
+    before = _k9_launches()
     with torch.inference_mode():
         got = melgan_stack.melgan_resstack(x, blocks, **kw)
         torch.cuda.synchronize()
         want = melgan_stack.melgan_resstack_plain(x, blocks, **kw)
-    assert melgan_stack.MELGAN_STACK_KERNEL.launches == before + 1
+    assert _k9_launches() == (before[0] + 1, before[1])
     assert got.shape == want.shape == ((B, W) if mode == "tail" else (B, C, W))
     torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("B, C, W", [(1, 256, 3448), (1, 128, 4099)])
+def test_melgan_stage_kernel_offset_input(device, B, C, W):
+    """x offset by +4, so lrelu(x) and x carry a large common part: products
+    in TF32 alone (without the split's correction terms) miss the stage
+    tolerance here by about 6x (tests/test_torch_port_melgan_tf32.py); the
+    3xTF32 kernel must hold it."""
+    from maskcyclegan_vc_tpu_torch.ops import melgan_stack
+
+    x, blocks, _ = _stage(device, B, C, W, 11 * C + W)
+    x = x + 4.0
+    before = _k9_launches()
+    with torch.inference_mode():
+        got = melgan_stack.melgan_resstack(x, blocks, emit_lrelu=True)
+        torch.cuda.synchronize()
+        want = melgan_stack.melgan_resstack_plain(x, blocks, emit_lrelu=True)
+    assert _k9_launches() == (before[0] + 1, before[1])
+    torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("C", [256, 16])
+@pytest.mark.parametrize("mode", ["emit_lrelu", "tail"])
+def test_melgan_stage_kernel_nan_input(device, C, mode):
+    """NaN in x, as the card makes it (0/0 gives 0x7FFFFFFF) and with the
+    sign set (0xFFFFFFFF), at a tile's first position and inside another
+    tile: the output is NaN exactly where the plain version's is (the TF32
+    split must not round such a NaN to -0), and within the stage tolerance
+    elsewhere. The plain version runs on the CPU, whose direct convolutions
+    spread a NaN only over each output's receptive field."""
+    from maskcyclegan_vc_tpu_torch.ops import melgan_stack
+
+    tw = _tile_positions(C)
+    x, blocks, tail = _stage(device, 1, C, 6 * tw + 40, 5 * C)
+    x[0, 1, 2 * tw] = torch.zeros((), device=device) / 0.0
+    x.view(torch.int32)[0, C - 1, 4 * tw + 7] = -1  # 0xFFFFFFFF
+    on_cpu = [{k: v.cpu() for k, v in bp.items()} for bp in blocks]
+    with torch.inference_mode():
+        if mode == "tail":
+            got = melgan_stack.melgan_resstack(x, blocks, tail=tail).cpu()
+            want = melgan_stack.melgan_resstack_plain(x.cpu(), on_cpu,
+                                                      tail=tuple(t.cpu() for t in tail))
+        else:
+            got = melgan_stack.melgan_resstack(x, blocks, emit_lrelu=True).cpu()
+            want = melgan_stack.melgan_resstack_plain(x.cpu(), on_cpu, emit_lrelu=True)
+    nan = want.isnan()
+    assert nan.any() and not nan.all()
+    assert torch.equal(got.isnan(), nan)
+    torch.testing.assert_close(got[~nan], want[~nan], atol=1e-4 * want[~nan].abs().max().item(),
+                               rtol=1e-4)
 
 
 def test_melgan_stage_reflect_edges(device):
