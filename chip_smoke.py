@@ -85,8 +85,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               decode, in f32 and with the bf16 vocoder in bf16. K9's f32
               form runs its products as 3xTF32 on the tensor cores: its
               bound is the flops at 495 / 3 TFLOP/s (the f32 cores' 67
-              TFLOP/s bound printed beside it), with the achieved TFLOP/s
-              of each stage.
+              TFLOP/s bound printed beside it); its bf16 form runs bf16
+              mma.sync products, bound at the dense bf16 rate (989
+              TFLOP/s); both with the achieved TFLOP/s of each stage.
 
 The last three lines are the kernels' JSON record, the card as nvidia-smi
 names it, and {"ok": true, "device": {...}}. Working files go to
@@ -773,7 +774,7 @@ def profile(fn, wall_s: float, what: str):
         return None
     groups = {
         "the port's kernels": r"in_kernel|ps_in_swish|pixel_shuffle_kernel|melspec_kernel|"
-                              r"resblock_(?:tc_)?kernel|tail_kernel",
+                              r"resblock_(?:tc|bf16)_kernel|tail_kernel",
         "convolutions (cuDNN)": r"conv|xmma|gemm|cudnn|wgrad|dgrad|fprop|winograd|implicit",
         "Adam (foreach)": r"multi_tensor_apply|foreach",
     }

@@ -33,7 +33,8 @@
 // Bound on an H100 SXM: operations. A block is 2 x (3 + 1 + 1) C^2 flops
 // per position, a stage 30 C^2 W (plus 14 C W for the tail): 30.5 GFLOP
 // over the four stages of a 431-frame decode, while its bytes (x in, y out,
-// ~2 x 4 x W x C a stage) take ~0.008 ms a stage at 3.35 TB/s.
+// ~2 x W x C elements of 4 bytes, or 2 in bf16) take ~0.008 ms a stage in
+// f32 at 3.35 TB/s. Both forms multiply on the tensor cores (below).
 //
 // f32 (melgan_resstack_forward): 3xTF32 on the tensor cores. Each f32
 // operand v is split into hi = tf32(v) and lo = tf32(v - hi) (round to
@@ -77,18 +78,33 @@
 // read once, a +-13 halo recomputed, as the TPU kernel keeps the stage in
 // VMEM) and wgmma/TMA are later work.
 //
-// The bf16 design (resblock_kernel, the _bf16 entry only): the f32 cores.
-// A thread block takes one (batch, tile of TW = 4096 / C positions) and all
-// C channels, stages lrelu(x) with its mirrored halo and x in shared memory
-// as above, computes lrelu(h) into shared memory, then the merged 1x1 conv
-// over [x; lrelu(h)]. Each of the 256 threads owns 4 output channels x 4
-// positions (positions strided by TW / 4, so shared-memory reads are
-// conflict-free), reading a float4 of weights from global memory (L2) and
-// four activations from shared memory per 16 FMAs. Shared memory is
-// C * (3 TW + 2d) floats, 67.6 KB at C = 256, d = 9. Its flops are bound by
-// the dense bf16 tensor-core rate, 0.031 ms at 989 TFLOP/s, which this
-// design cannot approach; its redesign on the tensor cores (mma.sync
-// m16n8k16 in bf16, no split) is later work.
+// The bf16 design (resblock_bf16_kernel, the _bf16 entry): the same two
+// implicit GEMMs on mma.sync.m16n8k16 bf16 with f32 accumulators, with the
+// roles swapped: M = positions, N = output channels, K = tap x ci (and
+// [x ; lrelu(h)] for the 1x1 conv). bf16 fragments pair two elements
+// consecutive along K in one register, so the activations are staged
+// position-major, [p][c]: the A operand of tap t is rows p + t * d, any row
+// of which is a 16-byte-aligned address for ldmatrix.x4, and the weights,
+// packed [k][co], give B through ldmatrix.trans. Rows are padded to an odd
+// number of 16-byte units, so the 8 rows of an ldmatrix phase hit all 32
+// banks. A thread block takes one (batch, tile of TW = TILE / NP positions)
+// and all NP = max(C, 8) output channels, each warp 32 channels (fewer when
+// NP < 32) x MT m16 tiles; TILE is 8192 outputs, or 16384 where the grid
+// still fills two thread blocks an SM (half the weight reads from L2). Each
+// tap's (or part's) K is padded to CK = max(C, 16) with zero weights and
+// zero activations. Weight chunks of min(CK, 64) rows are double-buffered by
+// cp.async as in the f32 form; a chunk never straddles a tap. x arrives 16
+// bytes (8 positions) a load where its rows allow, and its halo element by
+// element. lrelu(h)'s D fragment (positions g and g + 8, channels 2t and
+// 2t + 1) is one bf16x2 word at one position: it is written straight into
+// the [p][c] rows lrelu(x) held (row p + d), and the block's output through
+// shared memory as [c][p], so the (B, C, W) store runs along W, 16 bytes a
+// store where the rows allow. Every product is bf16 x bf16, exact in f32, so the MMA changes only the
+// summation order; one accumulator per output sums a whole product (the
+// tensor cores' accumulation error, ~1.6e-5 of the scale in f32, is far
+// inside the bf16 tolerance of two roundings). Its bound: the dense bf16
+// tensor rate, 0.031 ms per 431-frame decode at 989 TFLOP/s; mma.sync
+// peaks near 600 TFLOP/s on an H100 (scripts/mma_sync_peak.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,19 +112,26 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileElems = 4096;  // C * TW of one thread block of the bf16 kernel
 constexpr int kMaxC = 256;
 constexpr int kMaxDilation = 9;
 constexpr float kSlope = 0.2f;
 constexpr int kMaxDevices = 64;
-constexpr int kMaxSmemBytes =
-    (3 * kTileElems + 2 * kMaxDilation * kMaxC) * (int)sizeof(float);
 
 // The f32 kernel's tile: output channels (padded to 32) x positions of one
 // thread block. 8192 against 4096 and 16384: PERF.md.
 constexpr int kTileOut = 8192;
 constexpr int kChunkK = 32;  // weight rows (K) a chunk stages
+// The bf16 kernel's tiles, output channels (padded to 8) x positions: the
+// large one halves the weight reads from L2 and is taken where its grid
+// still fills two thread blocks an SM (Kernels<bf16, C>::launch); its weight
+// chunks (rows of K, at most) and the chunks in flight. Tiles against each
+// other: PERF.md.
+constexpr int kTileOutBf16 = 8192;
+constexpr int kTileOutBf16Large = 16384;
+constexpr int kChunkKBf16 = 64;
+constexpr int kStagesBf16 = 2;
+constexpr int kLoadBatch = 8;  // x loads a thread keeps in flight, element by element
+constexpr int kVecBatch = 2;   // and 16-byte pairs (8 positions of 2 channels)
 constexpr int kTcThreads = 256;
 constexpr int kWarps = kTcThreads / 32;
 
@@ -131,15 +154,6 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 template <typename T>
 __device__ __forceinline__ float round_to(float v) { return to_float(from_float<T>(v)); }
 
-// Four consecutive bf16 weights (8 bytes; aligned, since C and the channel
-// offset are multiples of 4), read through the read-only cache.
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 // Mirror index of position p in a sequence of W (W > pad), as reflect_pad.
 // Positions a ragged last tile computes past W and never stores get any
 // valid index.
@@ -147,102 +161,6 @@ __device__ __forceinline__ int reflect(int p, int W) {
   if (p < 0) p = -p;
   if (p >= W) p = 2 * (W - 1) - p;
   return min(max(p, 0), W - 1);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-resblock_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                const float* __restrict__ b1, const T* __restrict__ wm,
-                const float* __restrict__ bm, T* __restrict__ y, int C,
-                int W, int d, int emit_lrelu) {
-  extern __shared__ __align__(16) float smem[];
-  const int TW = kTileElems / C;
-  const int HW = TW + 2 * d;  // width of a halo'd row
-  float* xs = smem;           // (C, HW) lrelu(x) as T, mirrored at the edges
-  float* xr = xs + C * HW;    // (C, TW) x
-  float* hs = xr + C * TW;    // (C, TW) lrelu(h) as T
-
-  const int b = blockIdx.y, w0 = blockIdx.x * TW;
-  const T* xb = x + (size_t)b * C * W;
-  for (int i = threadIdx.x; i < C * HW; i += kThreads) {
-    const int c = i / HW, p = i - c * HW;
-    xs[i] = round_to<T>(lrelu(to_float(xb[(size_t)c * W + reflect(w0 - d + p, W)])));
-  }
-  for (int i = threadIdx.x; i < C * TW; i += kThreads) {
-    const int c = i / TW, p = i - c * TW;
-    xr[i] = w0 + p < W ? to_float(xb[(size_t)c * W + w0 + p]) : 0.f;
-  }
-  __syncthreads();
-
-  const int nwg = TW / 4;  // position groups; position j of group wg is wg + j * nwg
-  const int wg = threadIdx.x % nwg;
-  const int co = (threadIdx.x / nwg) * 4;
-  float acc[4][4];
-
-  // h = conv3_dil_d(xs) + b1, kept as lrelu(h).
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = b1[co + i];
-  for (int tap = 0; tap < 3; ++tap) {
-    const T* wt = w1 + (size_t)tap * C * C + co;
-    const float* xt = xs + tap * d + wg;
-#pragma unroll 4
-    for (int ci = 0; ci < C; ++ci) {
-      const float4 wv = load4(wt + (size_t)ci * C);
-      const float* row = xt + ci * HW;
-      const float wa[4] = {wv.x, wv.y, wv.z, wv.w};
-      float xv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) xv[j] = row[j * nwg];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(wa[i], xv[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      hs[(co + i) * TW + wg + j * nwg] = round_to<T>(lrelu(acc[i][j]));
-  __syncthreads();
-
-  // y = [shortcut | conv2] . [x ; lrelu(h)] + (bs + b2).
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = bm[co + i];
-#pragma unroll 2
-  for (int ci = 0; ci < C; ++ci) {
-    const float4 sv = load4(wm + (size_t)ci * C + co);
-    const float4 hv = load4(wm + (size_t)(C + ci) * C + co);
-    const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
-    const float ha[4] = {hv.x, hv.y, hv.z, hv.w};
-    float xv[4], gv[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      xv[j] = xr[ci * TW + wg + j * nwg];
-      gv[j] = hs[ci * TW + wg + j * nwg];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[i][j] = fmaf(ha[i], gv[j], fmaf(sa[i], xv[j], acc[i][j]));
-  }
-  T* yb = y + (size_t)b * C * W;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int w = w0 + wg + j * nwg;
-    if (w >= W) continue;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      // The block's output as T; emitted, its lrelu, rounded again.
-      const float v = round_to<T>(acc[i][j]);
-      yb[(size_t)(co + i) * W + w] = from_float<T>(emit_lrelu ? lrelu(v) : v);
-    }
-  }
 }
 
 // y[b, w] = tanh(b7 + sum_{tap, ci} k7[tap, ci] * lrelu(x[b, ci, mirror(w + tap - 3)])),
@@ -325,15 +243,17 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// Wait until at most n committed groups are still in flight.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 // Every accumulator of channel co set to bias[co] (0 past C).
@@ -467,7 +387,7 @@ resblock_tc_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 
   constexpr int kChunks = S::N1 + S::N2;
   for (int c = 0; c < kChunks; ++c) {
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();  // chunk c (and at c = 0 the tile) in; chunk c - 1 done
     if (c + 1 < kChunks) load_chunk(c + 1);
     if (c == S::N1) {
@@ -512,22 +432,364 @@ resblock_tc_kernel(const float* __restrict__ x, const float* __restrict__ w1,
       }
 }
 
-// Raise every f32 instantiation's dynamic shared memory limit once per
-// device, before any launch there (so never inside a CUDA graph capture).
-template <int C>
-cudaError_t raise_tc_smem() {
-  return cudaFuncSetAttribute(resblock_tc_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              TcShape<C>::smem_bytes(kMaxDilation));
+// ---- bf16: mma.sync m16n8k16 on a position-major tile ----
+
+using bf16 = __nv_bfloat16;
+
+// Row stride, in bf16, of shared rows of n bf16 (n a multiple of 8): an odd
+// number of 16-byte units, so the 8 rows an ldmatrix phase reads fall in 8
+// distinct groups of 4 banks.
+__host__ __device__ constexpr int ldm_stride(int n) { return n / 8 % 2 ? n : n + 8; }
+
+template <int C, int TILE>
+struct Bf16Shape {
+  static constexpr int NP = C < 8 ? 8 : C;            // output channels (N), zero-padded
+  static constexpr int CK = C < 16 ? 16 : C;          // K of a tap or part, zero-padded
+  static constexpr int TW = TILE / NP;                // positions (M) of a tile
+  static constexpr int WN = NP < 32 ? NP : 32;        // channels of a warp
+  static constexpr int NT = WN / 8;                   // n8 tiles of a warp
+  static constexpr int WARPS_N = NP / WN;             // warps along the channels
+  static constexpr int MT = TW / 16 / (kWarps / WARPS_N);  // m16 tiles of a warp
+  static constexpr int SR = ldm_stride(CK);           // stride of activation rows [p][c]
+  static constexpr int SW = ldm_stride(NP);           // stride of weight rows [k][co]
+  static constexpr int KC = CK < kChunkKBf16 ? CK : kChunkKBf16;  // weight rows of a chunk
+  static constexpr int N1 = 3 * CK / KC, N2 = 2 * CK / KC;  // chunks of each product
+  static constexpr int SY = TW + 8;                   // stride of the output's rows [c][p]
+  static_assert(TW % 32 == 0, "whole tiles load and store 8 positions a thread");
+  static_assert(kWarps % WARPS_N == 0 && MT >= 1 && (NT == 1 || NT % 2 == 0), "tile");
+  // x (TW, SR); lrelu(x) (TW + 2d, SR), later lrelu(h) at rows d..d+TW-1;
+  // kStagesBf16 weight chunks (KC, SW). The output (C, SY) is staged over x
+  // and lrelu(x).
+  static constexpr int smem_bytes(int d) {
+    return 2 * ((2 * TW + 2 * d) * SR + kStagesBf16 * KC * SW);
+  }
+  static_assert(C * SY <= 2 * TW * SR, "the output's staging fits over x and lrelu(x)");
+};
+
+// Four 8 x 8 bf16 matrices: lanes 8i..8i+7 give the row addresses of matrix
+// i, and lane l receives elements (l / 4, 2 (l % 4) .. +1) of each, one
+// register per matrix. .trans: elements (2 (l % 4) .. +1, l / 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(s));
 }
 
+// d += a . b, m16n8k16, bf16 in, f32 accumulate. Fragments (g = lane / 4,
+// t = lane % 4), each register two elements consecutive along K:
+// a {(g, 2t..2t+1), (g+8, 2t..2t+1), (g, 2t+8..9), (g+8, 2t+8..9)} of A
+// (16 x 16); b {(2t..2t+1, g), (2t+8..9, g)} of B (16 x 8); d {(g, 2t),
+// (g, 2t+1), (g+8, 2t), (g+8, 2t+1)} of D (16 x 8).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Every accumulator of channel co set to bias[co] (0 past C).
+template <int C, int MT, int NT>
+__device__ __forceinline__ void set_bias_bf16(float (&acc)[MT][NT][4], const float* bias,
+                                              int n0, int t) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int co = n0 + nt * 8 + 2 * t;
+    const float lo = co < C ? bias[co] : 0.f, hi = co + 1 < C ? bias[co + 1] : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      acc[mt][nt][0] = acc[mt][nt][2] = lo;
+      acc[mt][nt][1] = acc[mt][nt][3] = hi;
+    }
+  }
+}
+
+// acc += A . wc over one chunk of KC rows of K. a: the chunk's first A
+// column at the warp's first position, A row m at a + m * SR; wc: the chunk
+// (KC, SW) [k][co]. Lane l addresses A row l % 16, columns (l / 16) * 8 of
+// an m16 x k16 tile (matrices: rows 0-7 and 8-15 at k 0-7, then at k 8-15:
+// a0..a3), and B row l % 16, columns n + (l / 16) * 8 (k 0-7 and 8-15 of
+// two n8 tiles: b0, b1 of each; x2: one n8 tile, lanes 0-15).
+template <class S, int MT, int NT>
+__device__ __forceinline__ void mma_chunk_bf16(float (&acc)[MT][NT][4], const bf16* a,
+                                               const bf16* wc, int n0, int lane) {
+  const bf16* ar = a + (lane % 16) * S::SR + (lane / 16) * 8;
+  const bf16* br = wc + (lane % 16) * S::SW + n0 + (NT > 1 ? (lane / 16) * 8 : 0);
+#pragma unroll
+  for (int kk = 0; kk < S::KC; kk += 16) {
+    uint32_t af[MT][4], bf[NT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(af[mt], ar + mt * 16 * S::SR + kk);
+    if constexpr (NT == 1) {
+      ldmatrix_x2_trans(bf[0], br + kk * S::SW);
+    } else {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, br + kk * S::SW + np * 16);
+        bf[2 * np][0] = r[0];
+        bf[2 * np][1] = r[1];
+        bf[2 * np + 1][0] = r[2];
+        bf[2 * np + 1][1] = r[3];
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], af[mt], bf[nt]);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: the lower address
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int C, int TILE>
+__global__ void __launch_bounds__(kTcThreads, 2)
+resblock_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                     const float* __restrict__ b1, const bf16* __restrict__ wm,
+                     const float* __restrict__ bm, bf16* __restrict__ y, int W, int d,
+                     int emit_lrelu) {
+  using S = Bf16Shape<C, TILE>;
+  constexpr int MT = S::MT, NT = S::NT, SR = S::SR, SW = S::SW, KC = S::KC, CK = S::CK;
+  extern __shared__ __align__(16) bf16 smem_bf16[];
+  bf16* xr = smem_bf16;                     // (TW, SR) x of the tile, [p][c]
+  bf16* xs = xr + S::TW * SR;               // (TW + 2d, SR) lrelu(x), mirrored at the edges
+  bf16* ws = xs + (S::TW + 2 * d) * SR;     // kStagesBf16 x (KC, SW) weights [k][co]
+  bf16* ys = smem_bf16;                     // (C, SY) the output, [c][p], at the end
+
+  const int tid = threadIdx.x;
+  // Chunk c of the block's weights, w1's then wm's, into buffer c %
+  // kStagesBf16 (past the last chunk, an empty group). Row k of a product is
+  // part k / CK (w1: the tap; wm: shortcut, conv2), channel ci = k % CK:
+  // packed row part * C + ci, zeros for ci >= C and co >= C.
+  constexpr int kChunks = S::N1 + S::N2;
+  auto load_chunk = [&](int c) {
+    if (c >= kChunks) {
+      cp_async_commit();
+      return;
+    }
+    const bool first = c < S::N1;
+    const bf16* src = first ? w1 : wm;
+    const int k0 = (first ? c : c - S::N1) * KC;
+    bf16* dst = ws + (c % kStagesBf16) * KC * SW;
+    constexpr int Q = S::NP / 8;  // 16-byte pieces of a row
+    for (int i = tid; i < KC * Q; i += kTcThreads) {
+      const int r = i / Q, q = i - r * Q;
+      const int part = (k0 + r) / CK, ci = (k0 + r) % CK;
+      bf16* p = dst + r * SW + 8 * q;
+      const bf16* from = src + (size_t)(part * C + ci) * C + 8 * q;
+      if (ci >= C) {
+        *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
+      } else if constexpr (C % 8 == 0) {
+        cp_async16(p, from);
+      } else {  // C = 4: one 8-byte row, then zeros
+        const uint2 v = *reinterpret_cast<const uint2*>(from);
+        *reinterpret_cast<uint4*>(p) = make_uint4(v.x, v.y, 0u, 0u);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c + 1 < kStagesBf16; ++c) load_chunk(c);
+
+  // lrelu(x) over the tile and its +-d halo, rounded to bf16, and x of the
+  // tile, [p][c]; channels past C are zeros.
+  const int b = blockIdx.y, w0 = blockIdx.x * S::TW;
+  const bf16* xb = x + (size_t)b * C * W;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  auto put = [&](int p, int c, bf16 v) {  // p: row of lrelu(x), from w0 - d
+    xs[p * SR + c] = __float2bfloat16_rn(lrelu(__bfloat162float(v)));
+    if (p >= d && p < d + S::TW) xr[(p - d) * SR + c] = v;
+  };
+  // A whole tile on 16-byte rows of x and y: loaded and stored 16 bytes at
+  // a time.
+  const bool whole = W % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(y) % 16 == 0 && w0 + S::TW <= W;
+  if (whole) {
+    // 8 positions of channels c and c + 1 an item, stored as bf16x2 words;
+    // a warp takes 8 channel pairs x 4 groups of 8 positions, 64 contiguous
+    // bytes of each of its rows. The halo, d rows each side, is mirrored at
+    // the sequence's ends. A thread issues the loads of kVecBatch items (the
+    // first time with its halo's) before it stores any.
+    constexpr int PG = S::TW / 8, PB = CK / 16;  // position groups; blocks of 8 pairs
+    constexpr int NV = CK / 2 * PG / kTcThreads;   // items a thread
+    constexpr int NH = (CK * 2 * kMaxDilation + kTcThreads - 1) / kTcThreads;
+    static_assert(PG % 4 == 0 && CK / 2 * PG % kTcThreads == 0 && NV % kVecBatch == 0,
+                  "tile positions");
+    const int nh = CK * 2 * d;
+    bf16 hv[NH];
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      const int i = tid + h * kTcThreads, c = i / (2 * d), e = i - c * 2 * d;
+      const int p = e < d ? e : S::TW + e;  // row of lrelu(x)
+      hv[h] = i < nh && c < C ? xb[(size_t)c * W + reflect(w0 - d + p, W)] : zero;
+    }
+#pragma unroll
+    for (int v0 = 0; v0 < NV; v0 += kVecBatch) {
+      uint4 u[kVecBatch][2];
+      int cs[kVecBatch], ps[kVecBatch];
+#pragma unroll
+      for (int v = 0; v < kVecBatch; ++v) {
+        const int i = tid + (v0 + v) * kTcThreads, r = i / 32;
+        const int c = cs[v] = 2 * ((r % PB) * 8 + i % 8);
+        const int p0 = ps[v] = 8 * ((r / PB) * 4 + i / 8 % 4);
+        u[v][0] = u[v][1] = make_uint4(0u, 0u, 0u, 0u);
+        if (c < C) {  // C is even: c + 1 < C too
+          u[v][0] = *reinterpret_cast<const uint4*>(xb + (size_t)c * W + w0 + p0);
+          u[v][1] = *reinterpret_cast<const uint4*>(xb + (size_t)(c + 1) * W + w0 + p0);
+        }
+      }
+      if (v0 == 0) {
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          const int i = tid + h * kTcThreads, c = i / (2 * d), e = i - c * 2 * d;
+          if (i < nh) put(e < d ? e : S::TW + e, c, hv[h]);
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < kVecBatch; ++v) {
+        const bf16* lo = reinterpret_cast<const bf16*>(&u[v][0]);
+        const bf16* hi = reinterpret_cast<const bf16*>(&u[v][1]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          __nv_bfloat162 x2;
+          x2.x = lo[j];
+          x2.y = hi[j];
+          *reinterpret_cast<__nv_bfloat162*>(xr + (ps[v] + j) * SR + cs[v]) = x2;
+          *reinterpret_cast<uint32_t*>(xs + (ps[v] + j + d) * SR + cs[v]) =
+              pack_bf16x2(lrelu(__bfloat162float(x2.x)), lrelu(__bfloat162float(x2.y)));
+        }
+      }
+    }
+  } else {
+    // A ragged last tile, or rows not on 16-byte boundaries: element by
+    // element along W, kLoadBatch loads a thread in flight before it stores.
+    const int HW = S::TW + 2 * d, n = CK * HW;
+    for (int i0 = tid; i0 < n; i0 += kLoadBatch * kTcThreads) {
+      bf16 v[kLoadBatch];
+#pragma unroll
+      for (int u = 0; u < kLoadBatch; ++u) {
+        const int i = i0 + u * kTcThreads, c = i / HW;
+        v[u] = i < n && c < C ? xb[(size_t)c * W + reflect(w0 - d + i - c * HW, W)] : zero;
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadBatch; ++u) {
+        const int i = i0 + u * kTcThreads, c = i / HW;
+        if (i < n) put(i - c * HW, c, v[u]);
+      }
+    }
+  }
+
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int n0 = (warp % S::WARPS_N) * S::WN, m0 = (warp / S::WARPS_N) * MT * 16;
+  float acc[MT][NT][4];
+  set_bias_bf16<C>(acc, b1, n0, t);
+
+  for (int c = 0; c < kChunks; ++c) {
+    cp_async_wait<kStagesBf16 - 2>();
+    __syncthreads();  // chunk c (and at c = 0 the tile) in; chunk c - 1 done
+    load_chunk(c + kStagesBf16 - 1);
+    if (c == S::N1) {
+      // The dilated conv is done in every warp: lrelu(h), rounded to bf16,
+      // over lrelu(x) at rows p + d, one bf16x2 word per position.
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = m0 + mt * 16 + g + 8 * h, co = n0 + nt * 8 + 2 * t;
+            const uint32_t v = co < C ? pack_bf16x2(lrelu(acc[mt][nt][2 * h]),
+                                                    lrelu(acc[mt][nt][2 * h + 1]))
+                                      : 0u;
+            *reinterpret_cast<uint32_t*>(xs + (p + d) * SR + co) = v;
+          }
+      set_bias_bf16<C>(acc, bm, n0, t);
+      __syncthreads();
+    }
+    // The chunk's A: tap k0 / CK of lrelu(x), rows shifted by tap * d; then
+    // [x ; lrelu(h)], x's rows or lrelu(h)'s at rows p + d.
+    const int k0 = (c < S::N1 ? c : c - S::N1) * KC, part = k0 / CK, ci0 = k0 % CK;
+    const bf16* a = c < S::N1 ? xs + (m0 + part * d) * SR + ci0
+                              : (part == 0 ? xr + m0 * SR : xs + (m0 + d) * SR) + ci0;
+    mma_chunk_bf16<S>(acc, a, ws + (c % kStagesBf16) * KC * SW, n0, lane);
+  }
+
+  // The block's output, rounded to bf16 (emitted: its lrelu, rounded again),
+  // staged as [c][p] over x and lrelu(x), then stored along W.
+  __syncthreads();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = m0 + mt * 16 + g + 8 * (i / 2), co = n0 + nt * 8 + 2 * t + i % 2;
+        const float v = __bfloat162float(__float2bfloat16_rn(acc[mt][nt][i]));
+        if (co < C) ys[co * S::SY + p] = __float2bfloat16_rn(emit_lrelu ? lrelu(v) : v);
+      }
+  __syncthreads();
+  bf16* yb = y + (size_t)b * C * W;
+  if (whole) {  // 16 bytes (8 positions) a store
+    for (int i = tid; i < C * S::TW / 8; i += kTcThreads) {
+      const int co = i / (S::TW / 8), p = 8 * (i - co * (S::TW / 8));
+      *reinterpret_cast<uint4*>(yb + (size_t)co * W + w0 + p) =
+          *reinterpret_cast<const uint4*>(ys + co * S::SY + p);
+    }
+  } else {
+    for (int i = tid; i < C * S::TW; i += kTcThreads) {
+      const int co = i / S::TW, p = i - co * S::TW;
+      if (w0 + p < W) yb[(size_t)co * W + w0 + p] = ys[co * S::SY + p];
+    }
+  }
+}
+
+// ---- launching the three blocks ----
+
+// A block kernel with its shape: f32 3xTF32, or bf16 m16n8k16 at one tile.
 template <int C>
-cudaError_t launch_tc(const float* const src[3], float* const dst[3], const float* w1,
-                      const float* b1, const float* wm, const float* bm, int B, int W,
-                      int emit_lrelu, cudaStream_t st) {
+struct TcBlock {
   using S = TcShape<C>;
+  static constexpr auto kernel = &resblock_tc_kernel<C>;
+};
+template <int C, int TILE>
+struct Bf16Block {
+  using S = Bf16Shape<C, TILE>;
+  static constexpr auto kernel = &resblock_bf16_kernel<C, TILE>;
+};
+
+// Raise a kernel's dynamic shared memory limit; done for every kernel once
+// per device, before any launch there (so never inside a CUDA graph
+// capture).
+template <class K>
+cudaError_t raise_smem() {
+  return cudaFuncSetAttribute(K::kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              K::S::smem_bytes(kMaxDilation));
+}
+
+// The three ResnetBlocks of one call on kernel K, src[j] -> dst[j].
+template <class K, int C, typename T>
+cudaError_t launch_k(const T* const src[3], T* const dst[3], const T* w1, const float* b1,
+                     const T* wm, const float* bm, int B, int W, int emit_lrelu,
+                     cudaStream_t st) {
+  using S = typename K::S;
+  const auto kernel = K::kernel;
   const dim3 grid((W + S::TW - 1) / S::TW, B);
   for (int j = 0, d = 1; j < 3; ++j, d *= 3) {
-    resblock_tc_kernel<C><<<grid, kTcThreads, S::smem_bytes(d), st>>>(
+    kernel<<<grid, kTcThreads, S::smem_bytes(d), st>>>(
         src[j], w1 + (size_t)j * 3 * C * C, b1 + (size_t)j * C, wm + (size_t)j * 2 * C * C,
         bm + (size_t)j * C, dst[j], W, d, j == 2 && emit_lrelu);
     const cudaError_t err = cudaGetLastError();
@@ -536,57 +798,69 @@ cudaError_t launch_tc(const float* const src[3], float* const dst[3], const floa
   return cudaSuccess;
 }
 
-// The three ResnetBlocks of one call, src[j] -> dst[j]. f32: the tensor-core
-// kernel for C.
-cudaError_t launch_blocks(const float* const src[3], float* const dst[3], const float* w1,
-                          const float* b1, const float* wm, const float* bm, int B, int C,
+// The kernels of an element type and width, and which one a call takes.
+template <typename T, int C>
+struct Kernels;
+template <int C>
+struct Kernels<float, C> {
+  static cudaError_t raise() { return raise_smem<TcBlock<C>>(); }
+  static cudaError_t launch(const float* const src[3], float* const dst[3], const float* w1,
+                            const float* b1, const float* wm, const float* bm, int B, int W,
+                            int emit_lrelu, int, cudaStream_t st) {
+    return launch_k<TcBlock<C>, C>(src, dst, w1, b1, wm, bm, B, W, emit_lrelu, st);
+  }
+};
+template <int C>
+struct Kernels<bf16, C> {
+  using Small = Bf16Block<C, kTileOutBf16>;
+  using Large = Bf16Block<C, kTileOutBf16Large>;
+  static cudaError_t raise() {
+    const cudaError_t err = raise_smem<Small>();
+    return err != cudaSuccess ? err : raise_smem<Large>();
+  }
+  // The large tile where its grid gives every SM two thread blocks, else
+  // the small one: a decode at batch 1 is a wave or less of either, and its
+  // time that of one thread block; at batch 32 the large tile's halved
+  // weight reads win (PERF.md).
+  static cudaError_t launch(const bf16* const src[3], bf16* const dst[3], const bf16* w1,
+                            const float* b1, const bf16* wm, const float* bm, int B, int W,
+                            int emit_lrelu, int sms, cudaStream_t st) {
+    const long long blocks = (long long)B * ((W + Large::S::TW - 1) / Large::S::TW);
+    if (blocks >= 2LL * sms)
+      return launch_k<Large, C>(src, dst, w1, b1, wm, bm, B, W, emit_lrelu, st);
+    return launch_k<Small, C>(src, dst, w1, b1, wm, bm, B, W, emit_lrelu, st);
+  }
+};
+
+// The three ResnetBlocks of one call, src[j] -> dst[j], on the kernels for T
+// and C.
+template <typename T>
+cudaError_t launch_blocks(const T* const src[3], T* const dst[3], const T* w1,
+                          const float* b1, const T* wm, const float* bm, int B, int C,
                           int W, int emit_lrelu, int dev, cudaStream_t st) {
   static bool raised[kMaxDevices] = {};
+  static int sms[kMaxDevices] = {};
   if (!raised[dev]) {
-    const cudaError_t errs[] = {raise_tc_smem<4>(), raise_tc_smem<8>(), raise_tc_smem<16>(),
-                                raise_tc_smem<32>(), raise_tc_smem<64>(),
-                                raise_tc_smem<128>(), raise_tc_smem<256>()};
+    const cudaError_t errs[] = {
+        Kernels<T, 4>::raise(), Kernels<T, 8>::raise(), Kernels<T, 16>::raise(),
+        Kernels<T, 32>::raise(), Kernels<T, 64>::raise(), Kernels<T, 128>::raise(),
+        Kernels<T, 256>::raise(),
+        cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev)};
     for (const cudaError_t e : errs)
       if (e != cudaSuccess) return e;
     raised[dev] = true;
   }
+  const int n = sms[dev];
   switch (C) {
-    case 4: return launch_tc<4>(src, dst, w1, b1, wm, bm, B, W, emit_lrelu, st);
-    case 8: return launch_tc<8>(src, dst, w1, b1, wm, bm, B, W, emit_lrelu, st);
-    case 16: return launch_tc<16>(src, dst, w1, b1, wm, bm, B, W, emit_lrelu, st);
-    case 32: return launch_tc<32>(src, dst, w1, b1, wm, bm, B, W, emit_lrelu, st);
-    case 64: return launch_tc<64>(src, dst, w1, b1, wm, bm, B, W, emit_lrelu, st);
-    case 128: return launch_tc<128>(src, dst, w1, b1, wm, bm, B, W, emit_lrelu, st);
-    case 256: return launch_tc<256>(src, dst, w1, b1, wm, bm, B, W, emit_lrelu, st);
+    case 4: return Kernels<T, 4>::launch(src, dst, w1, b1, wm, bm, B, W, emit_lrelu, n, st);
+    case 8: return Kernels<T, 8>::launch(src, dst, w1, b1, wm, bm, B, W, emit_lrelu, n, st);
+    case 16: return Kernels<T, 16>::launch(src, dst, w1, b1, wm, bm, B, W, emit_lrelu, n, st);
+    case 32: return Kernels<T, 32>::launch(src, dst, w1, b1, wm, bm, B, W, emit_lrelu, n, st);
+    case 64: return Kernels<T, 64>::launch(src, dst, w1, b1, wm, bm, B, W, emit_lrelu, n, st);
+    case 128: return Kernels<T, 128>::launch(src, dst, w1, b1, wm, bm, B, W, emit_lrelu, n, st);
+    case 256: return Kernels<T, 256>::launch(src, dst, w1, b1, wm, bm, B, W, emit_lrelu, n, st);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// bf16: the scalar kernel.
-cudaError_t launch_blocks(const __nv_bfloat16* const src[3], __nv_bfloat16* const dst[3],
-                          const __nv_bfloat16* w1, const float* b1,
-                          const __nv_bfloat16* wm, const float* bm, int B, int C, int W,
-                          int emit_lrelu, int dev, cudaStream_t st) {
-  using T = __nv_bfloat16;
-  static bool raised[kMaxDevices] = {};
-  if (!raised[dev]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        resblock_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
-    if (err != cudaSuccess) return err;
-    raised[dev] = true;
-  }
-  const int TW = kTileElems / C;
-  const dim3 grid((W + TW - 1) / TW, B);
-  for (int j = 0, d = 1; j < 3; ++j, d *= 3) {
-    const size_t smem = (size_t)C * (3 * TW + 2 * d) * sizeof(float);
-    resblock_kernel<T><<<grid, kThreads, smem, st>>>(
-        src[j], w1 + (size_t)j * 3 * C * C, b1 + (size_t)j * C,
-        wm + (size_t)j * 2 * C * C, bm + (size_t)j * C, dst[j], C, W, d,
-        j == 2 && emit_lrelu);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
 }
 
 template <typename T>

@@ -15,6 +15,11 @@ rounded to bf16 as the JAX MelGAN's ``conv_param`` casts them
 rounded to bf16 where the Pallas kernel rounds them
 (``melgan_resstack_plain_bf16``). The weights come in f32 or in x's dtype.
 
+On the card both forms multiply on the tensor cores (``csrc/melgan_stack.cu``):
+f32 as 3xTF32 ``mma.sync`` products, bf16 as bf16 ``mma.sync.m16n8k16``
+implicit GEMMs over a position-major tile (bf16 products are exact in f32,
+so only the order of the f32 sums differs from the plain version's).
+
 ``melgan_resstack`` launches ``csrc/melgan_stack.cu``'s entry for x's
 dtype (``ENTRIES``) for x on the card and runs that dtype's plain version
 (``PLAIN``) for x on the CPU; anything else raises. Each entry has its own

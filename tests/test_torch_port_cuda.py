@@ -796,15 +796,42 @@ def _k9_launches():
     return tuple(melgan_stack.ENTRIES[d].launches for d in (torch.float32, torch.bfloat16))
 
 
+# The bf16 kernel's tiles: kTileOutBf16 and kTileOutBf16Large outputs,
+# max(C, 8) channels (C < 8 padded with zero weights) x TILE / max(C, 8)
+# positions, read from the source as for the f32 kernel. A call takes the
+# large tile where its grid gives every SM two thread blocks (132 SMs on an
+# H100: 264 blocks).
+_K9_TILES_BF16 = [re.findall(rf"constexpr int {name} = (\d+);",
+                             (CSRC / "melgan_stack.cu").read_text())
+                  for name in ("kTileOutBf16", "kTileOutBf16Large")]
+assert all(len(t) == 1 for t in _K9_TILES_BF16), "the bf16 tiles not found once in melgan_stack.cu"
+
+
+def _bf16_tile_positions(C, large=False):
+    return int(_K9_TILES_BF16[int(large)][0]) // max(C, 8)
+
+
+# Every width at a whole number of the small tiles and one position past it;
+# a batch of 3 with a ragged last tile; and a batch of 66 at 4 large tiles
+# and one position past (264 and 330 large tiles).
+TILE_EDGES_BF16 = ([(1, C, 3 * _bf16_tile_positions(C) + e)
+                    for C in (4, 8, 16, 32, 64, 128, 256) for e in (0, 1)]
+                   + [(3, C, 2 * _bf16_tile_positions(C) + 5)
+                      for C in (4, 8, 16, 32, 64, 128, 256)]
+                   + [(66, C, 4 * _bf16_tile_positions(C, large=True) + e)
+                      for C in (4, 8, 16, 32, 64, 128, 256) for e in (0, 1)])
+
+
 @pytest.mark.parametrize("B, C, W", [(1, 256, 3448), (1, 128, 27584), (1, 64, 55168),
                                      (1, 32, 110336), (2, 256, 100), (1, 64, 10),
-                                     (3, 32, 4099), (1, 4, 1025)])
+                                     (3, 32, 4099), (1, 4, 1025)] + TILE_EDGES_BF16)
 @pytest.mark.parametrize("mode", ["plain", "emit_lrelu", "tail"])
 @pytest.mark.parametrize("weights", ["f32", "bf16"])
 def test_melgan_stage_kernel_bf16(device, B, C, W, mode, weights):
     """The bf16 entry, with f32 weights or with the bf16 ones the bf16
-    vocoder passes, at the four stages of a 431-frame decode and ragged,
-    narrow and batched cases: bf16 out, the bf16 entry launched once."""
+    vocoder passes, at the four stages of a 431-frame decode, ragged,
+    narrow and batched cases and the tile edges: bf16 out, the bf16 entry
+    launched once."""
     from maskcyclegan_vc_tpu_torch.ops import melgan_stack
 
     x, blocks, tail = _stage(device, B, C, W, C + W + 1)
@@ -823,6 +850,40 @@ def test_melgan_stage_kernel_bf16(device, B, C, W, mode, weights):
     assert got.shape == want.shape == ((B, W) if mode == "tail" else (B, C, W))
     scale = want.float().abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TWO_BF16_OF_SCALE * scale)
+
+
+@pytest.mark.parametrize("C", [256, 16])
+@pytest.mark.parametrize("mode", ["emit_lrelu", "tail"])
+def test_melgan_stage_kernel_nan_input_bf16(device, C, mode):
+    """The bf16 twin of ``test_melgan_stage_kernel_nan_input``: a NaN (and
+    one with the sign set, 0xFFFF) at a tile's first position and inside
+    another tile reaches the output as NaN exactly where the plain
+    version's is, with the bf16 entry launched once, and the rest is
+    within two bf16 roundings of the scale."""
+    from maskcyclegan_vc_tpu_torch.ops import melgan_stack
+
+    tw = _bf16_tile_positions(C)
+    x, blocks, tail = _stage(device, 1, C, 6 * tw + 40, 5 * C + 1)
+    x = x.bfloat16()
+    x[0, 1, 2 * tw] = torch.zeros((), device=device) / 0.0
+    x.view(torch.int16)[0, C - 1, 4 * tw + 7] = -1  # 0xFFFF
+    on_cpu = [{k: v.cpu() for k, v in bp.items()} for bp in blocks]
+    before = _k9_launches()
+    with torch.inference_mode():
+        if mode == "tail":
+            got = melgan_stack.melgan_resstack(x, blocks, tail=tail).cpu()
+            want = melgan_stack.melgan_resstack_plain_bf16(x.cpu(), on_cpu,
+                                                           tail=tuple(t.cpu() for t in tail))
+        else:
+            got = melgan_stack.melgan_resstack(x, blocks, emit_lrelu=True).cpu()
+            want = melgan_stack.melgan_resstack_plain_bf16(x.cpu(), on_cpu, emit_lrelu=True)
+    assert _k9_launches() == (before[0], before[1] + 1)
+    nan = want.isnan()
+    assert nan.any() and not nan.all()
+    assert torch.equal(got.isnan(), nan)
+    scale = want[~nan].float().abs().max().item()
+    torch.testing.assert_close(got[~nan].float(), want[~nan].float(), rtol=0,
                                atol=TWO_BF16_OF_SCALE * scale)
 
 
