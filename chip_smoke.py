@@ -16,16 +16,19 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 4. convert    the conversion CLI (cli/test.py main, --device cuda) on a
               full-width generator with seeded random weights, written as a
               JAX-layout checkpoint, over 5 synthetic utterances; the launch
-              counts of the run, the output held against the CPU plain path,
+              counts of the run and K4's routes (every row bulk-copied into
+              shared memory), the output held against the CPU plain path,
               and the per-utterance latency.
 5. decode     the conversion CLI on the preprocessed speakers with a
               full-width melgan-neurips vocoder (seeded random weights saved
               as a state_dict) and --compute_mcd: 12 K9 calls per utterance
               (converted, original and target, 4 stages each); the card's
               waveforms against the CPU's and against the melgan-neurips
-              module itself; decode latency per utterance, audio-seconds
-              decoded per second, a profile; then the same CLI with
-              --griffin_lim (16 iterations, on the host).
+              module itself; mels of 1-4 frames against the CPU, each 4 K9
+              calls (at 1 frame the first stage is W = 8 wide); decode
+              latency per utterance, audio-seconds decoded per second, a
+              profile; then the same CLI with --griffin_lim (16 iterations,
+              on the host).
 6. train      the train CLI (cli/train.py main, --device cuda, --scan_epochs
               1 by default: each step a CUDA-graph replay) at full width on
               two synthetic speakers, 2 epochs then resumed to 3, with
@@ -38,8 +41,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               audio-seconds trained per second at batch 1 x 64 and 32 x 128,
               a step at a time and as graph replays (with the device-busy
               share of each, and the replays' batches held bit for bit
-              against the eager sampler's), each step's launch counts, peak
-              memory and a profiler breakdown.
+              against the eager sampler's), each step's launch counts and
+              K4's routes (all bulk-copied), peak memory and a
+              profiler breakdown.
 7. train bf16 the same CLI run as 6 with --dtype bfloat16: launches per
               replayed step on the bf16 entries of K1-K5 only (the plot's
               two conversions stay f32), losses within 0.15 relative of 6's
@@ -77,7 +81,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               exists, and its bound: K1-K5 at every call site recorded in one
               431-frame conversion (unmasked and with the call's lengths) and
               in one training step at each size (unmasked and with lengths
-              one frame short), the fused backward also against autograd; K6
+              one frame short), the fused backward also against autograd, K4
+              with the route each site takes; K6
               and K7 (exact) at every inverse-shuffle site of the 1 x 320
               step; the bf16 entries of K1-K7 likewise at the sites of the
               bf16 steps; K8 on the audio of every bucket the preprocess
@@ -629,7 +634,10 @@ def measure_sites(sites, device, label: str):
             lib_ms = None
             extra = f"dscale/dbias at {ratio:.3g} of their summation bound "
         else:
+            before = {d: dict(r) for d, r in ps.ROUTES.items()}
             err, lengths = check_forward(site, x, vecs, device)
+            taken = sorted({r for d, rs in ps.ROUTES.items() for r, n in rs.items()
+                            if n > before[d][r]})
             ms = device_ms(lambda: spec["fn"](x, *vecs), reps)
             ms_masked = device_ms(lambda: spec["fn"](x, *vecs, lengths), reps)
             plain_ms = device_ms(lambda: spec["plain"](x, *vecs), reps)
@@ -638,8 +646,10 @@ def measure_sites(sites, device, label: str):
             eager_ms = call_ms(lambda: spec["fn"](x, *vecs))
         b_ms, bound_by = bound_ms(site.kernel, site.shape, spec["n_vecs"])
         masked = "" if site.lengths is None else f"lengths {list(site.lengths)} "
+        if base_name(site.kernel) == "ps_in_swish":
+            masked += f"route {' '.join(taken)} "
         tol = ("atol=rtol=1e-5" if x.dtype == torch.float32 else
-               "one bf16 rounding" if extra == "" else "two bf16 roundings")
+               "one bf16 rounding" if ms_masked is not None else "two bf16 roundings")
         print(f"kernels: {label} {site.kernel:20s} in {str(site.shape):22s} {masked}"
               f"x{site.count} max_abs_err {err:.3g} (tol {tol}) {extra}"
               f"ms {ms:.5f} "
@@ -691,8 +701,10 @@ def phase_convert(device):
     launches = {k: KERNELS[k]["counter"].launches for k in PER_FORWARD}
     n_utt = len(UTTERANCE_FRAMES)
     want_launches = {k: PER_FORWARD[k] * n_utt for k in PER_FORWARD}
-    print(f"convert: launches {launches} (expected {want_launches})", flush=True)
-    if launches != want_launches:
+    routes, want_routes = route_counts(), bulk_routes(want_launches)
+    print(f"convert: launches {launches} (expected {want_launches}); routes {routes} "
+          f"(expected {want_routes})", flush=True)
+    if launches != want_launches or routes != want_routes:
         raise AssertionError("the conversion did not run every kernel as expected")
 
     out_dir = os.path.join(save, "smoke", "converted_audio_1")
@@ -740,11 +752,14 @@ def phase_convert(device):
           flush=True)
     profile(lambda: convert(mels["VCC2SF3"][i431]), lat[i431],
             f"{UTTERANCE_FRAMES[i431]}-frame conversion")
+    reset_counts()
     with recording_sites() as sites:
         convert(mels["VCC2SF3"][i431])
-    if site_counts(sites) != PER_FORWARD:
-        raise AssertionError(f"one conversion launched {site_counts(sites)}")
-    return sites
+    routes = route_counts()
+    if site_counts(sites) != PER_FORWARD or routes != bulk_routes(PER_FORWARD):
+        raise AssertionError(f"one conversion launched {site_counts(sites)}, routes {routes}")
+    print(f"convert: one {UTTERANCE_FRAMES[i431]}-frame conversion: routes {routes}", flush=True)
+    return sites, routes
 
 
 def profile(fn, wall_s: float, what: str):
@@ -803,6 +818,23 @@ def profile(fn, wall_s: float, what: str):
 def reset_counts() -> None:
     for spec in KERNELS.values():
         spec["counter"].launches = 0
+    for routes in ps.ROUTES.values():
+        for r in routes:
+            routes[r] = 0
+
+
+def route_counts() -> dict:
+    """K4's launches since the counts were reset by the route its blocks
+    took, those taken at all ("ps_in_swish/bulk", "ps_in_swish_bf16/stream").
+    K5 has one route, its row bulk-copied: its launches are its counts."""
+    return {f"{entry_name('ps_in_swish', dtype)}/{r}": n
+            for dtype, routes in ps.ROUTES.items() for r, n in routes.items() if n}
+
+
+def bulk_routes(launches: dict) -> dict:
+    """The route counts of a run that launched ``launches``: every K4 launch
+    with its row bulk-copied into shared memory."""
+    return {f"{k}/bulk": n for k, n in launches.items() if base_name(k) == "ps_in_swish" and n}
 
 
 def counts() -> dict:
@@ -1000,6 +1032,19 @@ def phase_decode(device, pre: str, ckpts: str):
           f"{e_mod:.3g} (bound {WAV_TOL:g})", flush=True)
     if n != N_PARAMS_VOCODER or got.shape != (431 * HOP,) or max(e_cpu, e_mod) > WAV_TOL:
         raise AssertionError("the card's decode disagrees with its references")
+    # Mels of 1-4 frames: at 1 frame the first stage (W = 8) is narrower
+    # than its pad of 9, and K9 reflects the halo again, as jnp.pad does.
+    cpu_vocoder = melgan.load_vocoder(voc_path, "cpu")
+    for t in range(1, 5):
+        reset_counts()
+        short = melgan.decode_mel(vocoder, mel[None, :, :t], mean, std)[0].cpu().numpy()
+        k9 = KERNELS["melgan_stack"]["counter"].launches
+        e = float(np.abs(short - melgan.decode_mel(cpu_vocoder, mel[None, :, :t], mean,
+                                                   std)[0].numpy()).max())
+        print(f"decode: a {t}-frame mel -> {short.size} samples, card vs CPU max abs error "
+              f"{e:.3g} (bound {WAV_TOL:g}); K9 calls {k9} (expected 4)", flush=True)
+        if short.shape != (t * HOP,) or e > WAV_TOL or k9 != 4:
+            raise AssertionError(f"the card's {t}-frame decode went wrong")
 
     src = load_speaker(pre, "VCC2SF3")
     for m in src[0]:  # warm-up, every length
@@ -1490,16 +1535,19 @@ def step_timing(cfg, banks, device, batch: int, frames: int):
           f"peak memory {peak:.2f} GiB; launches in one step {launches} "
           f"(expected {want}); losses g {float(m['g_loss']):.4f} "
           f"d {float(m['d_loss']):.4f}", flush=True)
-    if launches != want or site_counts(sites) != launches:
+    routes = route_counts()
+    print(f"train: {name} step at batch {batch} x {frames}: routes in one step {routes} "
+          f"(expected {bulk_routes(want)})", flush=True)
+    if launches != want or site_counts(sites) != launches or routes != bulk_routes(want):
         raise AssertionError(f"one step at batch {batch} x {frames} launched {launches}, "
-                             f"recorded {site_counts(sites)}")
+                             f"recorded {site_counts(sites)}, routes {routes}")
     if not all(np.isfinite(float(v)) for v in m.values()):
         raise AssertionError(f"non-finite metrics at batch {batch}: {m}")
     profile(lambda: step(state, batches[0]), ms / 1e3,
             f"one {name} training step at batch {batch} x {frames}")
     del state, batches
     torch.cuda.empty_cache()
-    return launches, sites, ms
+    return {**launches, **routes}, sites, ms
 
 
 def step_timing_graphed(cfg, banks, device, batch: int, frames: int, spans: int,
@@ -1921,7 +1969,7 @@ def main() -> int:
     took("build")
     audio_pre, log_mel_launches, mel_inputs = phase_preprocess(device)
     took("preprocess")
-    convert_sites = phase_convert(device)
+    convert_sites, convert_routes = phase_convert(device)
     took("convert")
     vocoder_ckpt, stack_launches, stage_calls = phase_decode(
         device, audio_pre, os.path.join(WORK, "ckpts"))
@@ -1980,6 +2028,16 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "ms_32x128": step32[k]["ms"], "bound_ms_32x128": step32[k]["bound_ms"]})
+        if base_name(k) == "ps_in_swish":
+            # K4's launches by route in one eager step at each size and in
+            # one 431-frame conversion: all bulk-copied (K5 has that route
+            # only).
+            kernels[-1].update({
+                f"routes_per_step{size}": {r: n for r, n in per.items()
+                                           if r.startswith(f"{k}/")}
+                for size, per in (("", per_step1), ("_32x128", per_step32))})
+            if k == "ps_in_swish":
+                kernels[-1]["routes_per_conversion"] = convert_routes
     # K6, K7: ms, plain_ms, library_ms and bound_ms summed over the 1 x 320
     # step's K6 sites (K7 at the transposed shapes): six in f32, three in
     # bf16; launches: the long-crop runs' (K7 is on no path: K6's gradient,

@@ -58,7 +58,8 @@
 // its 8 warps each own 32 channels x 8 NT positions (2 x NT m16n8 tiles).
 // Shared memory holds x of the tile, lrelu(x) over the tile and its +-d
 // halo, positions outside [0, W) taking their mirror (-m -> m, W-1+m ->
-// W-1-m) exactly as the reference pads the whole sequence, and two chunks
+// W-1-m, repeated where m >= W: reflect()) exactly as the reference pads
+// the whole sequence, and two chunks
 // of kChunkK weight rows [k][co]: cp.async (16 B, .cg: through L2 only)
 // brings the next chunk in while the warps multiply the current one. Both
 // products are implicit GEMMs on mma.sync.m16n8k8 TF32 with f32
@@ -154,13 +155,29 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 template <typename T>
 __device__ __forceinline__ float round_to(float v) { return to_float(from_float<T>(v)); }
 
-// Mirror index of position p in a sequence of W (W > pad), as reflect_pad.
-// Positions a ragged last tile computes past W and never stores get any
-// valid index.
-__device__ __forceinline__ int reflect(int p, int W) {
+// Mirror index of position p in a sequence of W > 9, every pad's one
+// reflection (-m -> m, W-1+m -> W-1-m), as reflect_pad. Positions a ragged
+// last tile computes past W and never stores get any valid index.
+__device__ __forceinline__ int mirror_once(int p, int W) {
   if (p < 0) p = -p;
   if (p >= W) p = 2 * (W - 1) - p;
   return min(max(p, 0), W - 1);
+}
+
+// Mirror index of position p in a sequence of any W >= 1, as reflect_pad
+// and jnp.pad(mode="reflect"): for W <= 9 (a mel of 1 frame reaches the
+// first stage at W = 8) the mirror repeats with period 2 (W - 1), as the
+// Pallas kernel's sequential fill does (melgan_stack_kernel.py:123-134);
+// at W = 1 every position is 0. W is the same across the grid, so the
+// branch never diverges; past 9 the code is mirror_once's (a general
+// mirror there cost K9 4-5 % on an H100, scripts/k9_stage_time.py).
+__device__ __forceinline__ int reflect(int p, int W) {
+  if (W > kMaxDilation) return mirror_once(p, W);
+  if (W == 1) return 0;
+  const int period = 2 * (W - 1);
+  p %= period;
+  if (p < 0) p += period;
+  return p < W ? p : period - p;
 }
 
 // y[b, w] = tanh(b7 + sum_{tap, ci} k7[tap, ci] * lrelu(x[b, ci, mirror(w + tap - 3)])),
@@ -627,6 +644,8 @@ resblock_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     constexpr int PG = S::TW / 8, PB = CK / 16;  // position groups; blocks of 8 pairs
     constexpr int NV = CK / 2 * PG / kTcThreads;   // items a thread
     constexpr int NH = (CK * 2 * kMaxDilation + kTcThreads - 1) / kTcThreads;
+    // A whole tile lies in a row wider than any pad: one mirror suffices.
+    static_assert(S::TW > kMaxDilation, "tile narrower than the pads");
     static_assert(PG % 4 == 0 && CK / 2 * PG % kTcThreads == 0 && NV % kVecBatch == 0,
                   "tile positions");
     const int nh = CK * 2 * d;
@@ -635,7 +654,7 @@ resblock_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     for (int h = 0; h < NH; ++h) {
       const int i = tid + h * kTcThreads, c = i / (2 * d), e = i - c * 2 * d;
       const int p = e < d ? e : S::TW + e;  // row of lrelu(x)
-      hv[h] = i < nh && c < C ? xb[(size_t)c * W + reflect(w0 - d + p, W)] : zero;
+      hv[h] = i < nh && c < C ? xb[(size_t)c * W + mirror_once(w0 - d + p, W)] : zero;
     }
 #pragma unroll
     for (int v0 = 0; v0 < NV; v0 += kVecBatch) {
@@ -868,8 +887,7 @@ int forward(const void* x_, const void* w1_, const float* b1, const void* wm_,
             const float* bm, const void* k7_, const float* b7, void* buf0_,
             void* buf1_, void* out_, int B, int C, int W, int emit_lrelu,
             void* stream) {
-  if (C < 4 || C > kMaxC || 1024 % C != 0 || W <= kMaxDilation)
-    return (int)cudaErrorInvalidValue;
+  if (C < 4 || C > kMaxC || 1024 % C != 0 || W < 1) return (int)cudaErrorInvalidValue;
   const T* x = static_cast<const T*>(x_);
   const T* w1 = static_cast<const T*>(w1_);
   const T* wm = static_cast<const T*>(wm_);
@@ -900,7 +918,7 @@ extern "C" {
 // x: (B, C, W); buf0, buf1: (B, C, W) scratch; out: (B, C, W), or (B, W)
 // when k7 is given. x, w1, wm, k7, the buffers and out are f32, or bf16 in
 // the _bf16 entry; b1, bm and b7 are f32 in both. C a power of two from 4
-// to 256, W > 9. Returns a cudaError_t.
+// to 256, W >= 1. Returns a cudaError_t.
 int melgan_resstack_forward(const void* x, const void* w1, const float* b1,
                             const void* wm, const float* bm, const void* k7,
                             const float* b7, void* buf0, void* buf1, void* out,

@@ -15,7 +15,9 @@ Layout (B, C, W), PyTorch's. Each stage's blocks run through
 ``ops.melgan_stack.melgan_resstack``: the kernel on the card, the plain
 chain on the CPU. The stages but the last emit their output pre-activated,
 and the last carries the tail, as the JAX package's fused path does, so a
-decode is four K9 calls. Inference only.
+decode is four K9 calls, a mel of 1-3 frames too (its first stage, as
+narrow as W = 8, reflects its pads again, as ``jnp.pad`` does). Inference
+only.
 
 ``dtype`` (None, f32, or ``torch.bfloat16``) is the compute dtype, as in
 the JAX module (``models/melgan.py:88-103, 130-150``): the mel is cast to

@@ -54,8 +54,19 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
 
 
 def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
-    """Mirror-pad the last axis of (B, C, W) by p a side."""
-    return F.pad(x, (p, p), mode="reflect")
+    """Mirror-pad the last axis of (B, C, W) by p a side, as ``jnp.pad(...,
+    mode="reflect")``: for p >= W the mirror repeats with period 2 (W - 1)
+    (a constant for W = 1), where ``F.pad`` refuses."""
+    W = x.shape[-1]
+    if p < W:
+        return F.pad(x, (p, p), mode="reflect")
+    i = torch.arange(-p, W + p, device=x.device)
+    if W > 1:
+        i = i.remainder(2 * (W - 1))
+        i = torch.where(i >= W, 2 * (W - 1) - i, i)
+    else:
+        i = torch.zeros_like(i)
+    return x.index_select(-1, i)
 
 
 def melgan_resstack_plain(x: torch.Tensor, blocks: Blocks, emit_lrelu: bool = False,
@@ -139,8 +150,8 @@ def _check(x: torch.Tensor, blocks: Blocks, emit_lrelu: bool, tail) -> None:
     B, C, W = x.shape
     if len(blocks) != len(DILATIONS):
         raise ValueError(f"expected {len(DILATIONS)} blocks, got {len(blocks)}")
-    if W <= max(DILATIONS):
-        raise ValueError(f"W = {W}: reflect padding by {max(DILATIONS)} needs W > 9")
+    if W < 1:
+        raise ValueError("expected W >= 1")
     if emit_lrelu and tail is not None:
         raise ValueError("emit_lrelu and tail exclude each other")
     shapes = {"conv1.weight": (C, C, 3), "conv2.weight": (C, C, 1),

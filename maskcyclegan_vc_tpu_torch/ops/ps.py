@@ -16,16 +16,22 @@ kernel has one C entry per dtype, with its own launch count.
 
 ``pixel_shuffle_in_swish`` launches the CUDA forward (``csrc/ps_in_swish.cu``)
 for a tensor on the card and runs ``pixel_shuffle_in_swish_plain`` for a
-tensor on the CPU. Where an input requires grad it runs through an
-autograd Function: the forward also keeps each (sample, channel)'s mean
-and inv-std. The masked function has no backward.
+tensor on the CPU. On the card each launch also counts the route its
+blocks took, as the C entry reports it (``ROUTES``): each (sample,
+channel) row staged once in shared memory by a bulk copy, or streamed from
+device memory where it is larger than a block's shared memory. Where an
+input requires grad it runs through an autograd Function: the forward also
+keeps each (sample, channel)'s mean and inv-std. The masked function has
+no backward.
 
 The backward takes the JAX package's two routes (``_sis_bwd``,
 ``ps_kernel.py:386-392``), chosen by the same per-sample size:
 
 - up to ``BWD_BUDGET_BYTES`` of ``pixel_shuffle_in_swish_backward_bytes``,
   the fused kernel K5, ``pixel_shuffle_in_swish_backward``, from the
-  forward's statistics;
+  forward's statistics, each row's x and dy staged in shared memory (it
+  raises for rows that do not fit, ``smem_limit_bytes``; within the budget
+  the model's rows are at most 87 KB);
 - past it, ``pixel_shuffle_in_swish_backward_split``: the inverse shuffle
   K6 on dy, then the gradient in eager PyTorch from one-pass statistics
   recomputed from x (``_sis_bwd_xla``).
@@ -44,12 +50,13 @@ each one's gradient is the other kernel.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from maskcyclegan_vc_tpu_torch.ops.cuda_lib import INT, PTR, CudaKernel
+from maskcyclegan_vc_tpu_torch.ops.cuda_lib import INT, PTR, CudaKernel, load
 from maskcyclegan_vc_tpu_torch.ops.in_gate import (
     EPS,
     instance_norm_f32,
@@ -57,7 +64,7 @@ from maskcyclegan_vc_tpu_torch.ops.in_gate import (
     wants_grad,
 )
 
-_FWD_ARGS = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR]
+_FWD_ARGS = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR]
 _BWD_ARGS = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR]
 _SHUFFLE_ARGS = [PTR, PTR, INT, INT, INT, INT, PTR]
 PS_IN_SWISH_KERNEL = CudaKernel("ps_in_swish", "ps_in_swish_forward", _FWD_ARGS)
@@ -82,6 +89,25 @@ ENTRIES = {
         torch.bfloat16: CudaKernel("pixel_shuffle", "inverse_pixel_shuffle_forward_bf16",
                                    _SHUFFLE_ARGS)},
 }
+
+# K4's launches by the route its blocks took, for each dtype of x, as the
+# C entry reports it (``csrc/ps_in_swish.cu``): the row bulk-copied into
+# shared memory ("bulk"), or read from device memory where it exceeds a
+# block's shared memory ("stream"). K5 has the first route only; its
+# launches are its entry's count. A caller may set a count back to 0.
+ROUTE_NAMES = ("bulk", "stream")
+ROUTES = {dtype: dict.fromkeys(ROUTE_NAMES, 0) for dtype in (torch.float32, torch.bfloat16)}
+
+
+def smem_limit_bytes(device) -> int:
+    """The most bytes one K4 or K5 block stages in shared memory on
+    ``device``: K4's row, or K5's x row and dy plane together. A larger
+    K4 row streams from device memory; K5 refuses it."""
+    lib = load("ps_in_swish")
+    lib.ps_in_swish_smem_limit.restype = INT
+    with torch.cuda.device(device):
+        return lib.ps_in_swish_smem_limit()
+
 
 # ``_BWD_VMEM_BUDGET`` of ps_kernel.py: past it the backward takes the split
 # route. Read at each call, so a test may patch it.
@@ -217,13 +243,15 @@ def _forward(x, scale, bias, lengths=None, stats=False):
     if stats:
         mean = torch.empty((B, C), device=x.device, dtype=torch.float32)
         inv = torch.empty_like(mean)
+    route = ctypes.c_int()
     with torch.cuda.device(x.device):
         ENTRIES["ps_in_swish"][x.dtype](
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             None if lengths is None else lengths.data_ptr(),
             y.data_ptr(), None if mean is None else mean.data_ptr(),
             None if inv is None else inv.data_ptr(), B, C, H, W,
-            torch.cuda.current_stream().cuda_stream)
+            ctypes.addressof(route), torch.cuda.current_stream().cuda_stream)
+    ROUTES[x.dtype][ROUTE_NAMES[route.value]] += 1
     return y, mean, inv
 
 
@@ -240,7 +268,9 @@ def pixel_shuffle_in_swish_backward(x: torch.Tensor, dy: torch.Tensor,
     """(dx, dscale, dbias) of the unmasked function; dscale and dbias are
     summed over the batch. dy, in x's dtype, may be non-contiguous (a batch
     slice, or a checkpoint's recompute): it is made contiguous before the
-    launch. mean and inv are the forward's f32 statistics."""
+    launch. mean and inv are the forward's f32 statistics. On the card a
+    row's x and dy must fit a block's shared memory together
+    (``smem_limit_bytes``), else the launch raises."""
     B, C, H, W = _check(x)
     check_args(x, C, (scale, bias), None)
     dy = dy.contiguous()

@@ -380,12 +380,17 @@ TILE_EDGES = ([(1, C, 3 * _tile_positions(C) + e) for C in (4, 8, 16, 32, 64, 12
               + [(3, 256, 3 * 32 + 5), (3, 128, 3 * 64 + 7), (2, 16, 3 * 256 + 3)])
 
 
+# Stages no wider than the pad of 9, whose halo reflects again (a mel of 1
+# frame reaches the first stage at W = 8).
+NARROW = [(2, 256, 8), (1, 32, 1), (3, 64, 2), (1, 128, 5), (2, 16, 9)]
+
+
 # The four stages of a 431-frame decode, then ragged, narrow and batched
 # cases, then the tile edges. One f32 call counts one f32 launch and no bf16
 # one.
 @pytest.mark.parametrize("B, C, W", [(1, 256, 3448), (1, 128, 27584), (1, 64, 55168),
                                      (1, 32, 110336), (2, 256, 100), (1, 64, 10),
-                                     (3, 32, 4099), (1, 4, 1025)] + TILE_EDGES)
+                                     (3, 32, 4099), (1, 4, 1025)] + NARROW + TILE_EDGES)
 @pytest.mark.parametrize("mode", ["plain", "emit_lrelu", "tail"])
 def test_melgan_stage_kernel(device, B, C, W, mode):
     from maskcyclegan_vc_tpu_torch.ops import melgan_stack
@@ -483,6 +488,26 @@ def test_vocoder_decode_on_the_card_matches_cpu(device):
         got = gpu(mel.to(device)).cpu()
         want = cpu(mel)
     assert melgan_stack.MELGAN_STACK_KERNEL.launches == before + 4
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+
+def test_vocoder_decodes_a_one_frame_mel_on_the_card(device):
+    """A 1-frame mel reaches the first stage at W = 8, narrower than its pad
+    of 9: all four stages still run K9, and the waveform equals the CPU's
+    within the whole decode's bound."""
+    from maskcyclegan_vc_tpu_torch.models.melgan import MelGANGenerator
+    from maskcyclegan_vc_tpu_torch.ops import melgan_stack
+
+    cpu = MelGANGenerator(80, 8, generator=torch.Generator().manual_seed(7))
+    gpu = MelGANGenerator(80, 8, device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    mel = torch.randn(2, 80, 1, generator=torch.Generator().manual_seed(8))
+    before = melgan_stack.MELGAN_STACK_KERNEL.launches
+    with torch.inference_mode():
+        got = gpu(mel.to(device)).cpu()
+        assert melgan_stack.MELGAN_STACK_KERNEL.launches == before + 4
+        want = cpu(mel)
+    assert got.shape == (2, 256)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
 
 
@@ -824,7 +849,8 @@ TILE_EDGES_BF16 = ([(1, C, 3 * _bf16_tile_positions(C) + e)
 
 @pytest.mark.parametrize("B, C, W", [(1, 256, 3448), (1, 128, 27584), (1, 64, 55168),
                                      (1, 32, 110336), (2, 256, 100), (1, 64, 10),
-                                     (3, 32, 4099), (1, 4, 1025)] + TILE_EDGES_BF16)
+                                     (3, 32, 4099), (1, 4, 1025)] + NARROW
+                         + TILE_EDGES_BF16)
 @pytest.mark.parametrize("mode", ["plain", "emit_lrelu", "tail"])
 @pytest.mark.parametrize("weights", ["f32", "bf16"])
 def test_melgan_stage_kernel_bf16(device, B, C, W, mode, weights):
@@ -945,3 +971,171 @@ def test_bf16_vocoder_on_the_card(device):
     assert torch.isfinite(got).all() and got.abs().max() <= 1.0
     band = (want_bf16.float() - want).abs().max().item()
     assert (got - want).abs().max().item() <= 2 * band + TWO_BF16_OF_SCALE * want.abs().max()
+
+
+# ---------- K4 and K5 by route ----------
+#
+# Each launch stages its (sample, channel) row in shared memory by one bulk
+# copy (the block's threads copy the under-16-byte head and tail of a row
+# that starts or ends off a 16-byte boundary). A K4 row larger than a
+# block's shared memory streams from device memory; K5, whose x row and dy
+# plane must fit together, refuses it. Tolerances as above: TOL in f32,
+# ONE_BF16 (K5's dx ``_k5_dx_bound``) in bf16, dscale and dbias
+# ``_sum_bound``.
+
+def _check_k4(x, s, b, lengths, route):
+    dtype = x.dtype
+    tol = TOL if dtype == torch.float32 else ONE_BF16
+    before = dict(ps.ROUTES[dtype])
+    got = ps.pixel_shuffle_in_swish(x, s, b, lengths)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in ps.ROUTES[dtype].items()} == {
+        r: int(r == route) for r in ps.ROUTE_NAMES}
+    want = ps.pixel_shuffle_in_swish_plain(x, s, b, lengths)
+    assert got.dtype == want.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    return got
+
+
+def _check_k5(x, dy, s, b):
+    B, C4, H, W = x.shape
+    C = C4 // 4
+    _, mean, inv = ps.pixel_shuffle_in_swish_with_stats(x, s, b)
+    entry = ps.ENTRIES["ps_in_swish_bwd"][x.dtype]
+    before = entry.launches
+    dx, dsc, dbi = ps.pixel_shuffle_in_swish_backward(x, dy, s, b, mean, inv)
+    torch.cuda.synchronize()
+    assert entry.launches == before + 1
+    want = ps.pixel_shuffle_in_swish_backward_plain(x, dy, s, b, mean, inv)
+    xr, sr, br = (t.clone().requires_grad_() for t in (x, s, b))
+    auto = torch.autograd.grad(ps.pixel_shuffle_in_swish_plain(xr, sr, br), (xr, sr, br), dy)
+    dz = torch.nn.functional.pixel_unshuffle(dy.float(), 2).reshape(B, C, -1).abs()
+    for ref in (want, auto):
+        if x.dtype == torch.float32:
+            torch.testing.assert_close(dx, ref[0], **TOL)
+        else:
+            bound = _k5_dx_bound(x, dy, s, b, mean, inv, want[0])
+            assert ((dx.float() - ref[0].float()).abs() <= bound).all()
+        for got, r in ((dsc, ref[1]), (dbi, ref[2])):
+            assert ((got - r).abs() <= _sum_bound(dz * 4.0)).all()
+    return dx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(32, 1024, 20, 32), (32, 512, 40, 64)])
+def test_k4_k5_at_the_32x128_sites(device, dtype, shape):
+    """upSample1 and upSample2 of a 32 x 128 step, both bulk-copied."""
+    B, C4, H, W = shape
+    x, (s, b) = _inputs(device, shape, C4 // 4, 2, 30)
+    x = x.to(dtype)
+    g = torch.Generator(device=device).manual_seed(31)
+    dy = torch.randn((B, C4 // 4, 2 * H, 2 * W), device=device, generator=g).to(dtype)
+    _check_k4(x, s, b, None, "bulk")
+    _check_k5(x, dy, s, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("past", [0, 1])
+def test_rows_at_the_shared_memory_limit(device, dtype, past):
+    """A row of exactly the limit's bytes is bulk-copied; one element pair
+    past it (W odd, so scalar accesses) streams. K5's x row and dy plane of
+    exactly the limit together run; one element pair past it is refused."""
+    limit = ps.smem_limit_bytes(device)
+    esize = torch.finfo(dtype).bits // 8
+    W = limit // (4 * esize)
+    assert 4 * W * esize == limit
+    x, (s, b) = _inputs(device, (2, 4, 1, W + past), 1, 2, 32)
+    x = x.to(dtype)
+    lengths = torch.tensor([2 * W - 3, W], dtype=torch.int32, device=device)
+    route = "stream" if past else "bulk"
+    _check_k4(x, s, b, None, route)
+    _check_k4(x, s, b, lengths, route)
+    Wb = W // 2
+    xb, _ = _inputs(device, (1, 4, 1, Wb + past), 1, 2, 33)
+    xb = xb.to(dtype)
+    dy = torch.randn((1, 1, 2, 2 * (Wb + past)), device=device).to(dtype)
+    if not past:
+        _check_k5(xb, dy, s, b)
+        return
+    _, mean, inv = ps.pixel_shuffle_in_swish_with_stats(xb, s, b)
+    entry = ps.ENTRIES["ps_in_swish_bwd"][dtype]
+    before = entry.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        ps.pixel_shuffle_in_swish_backward(xb, dy, s, b, mean, inv)
+    assert entry.launches == before
+
+
+@pytest.mark.parametrize("dtype, frames", [(torch.float32, 1024), (torch.bfloat16, 2048)])
+def test_streaming_rows_at_upsample2(device, dtype, frames):
+    """The upSample2 row of a 1 x ``frames`` crop, 320 KB, past a block's
+    shared memory: 16-byte accesses from device memory, unmasked and
+    masked."""
+    shape = (1, 512, 40, frames // 2)
+    x, (s, b) = _inputs(device, shape, 128, 2, 34)
+    x = x.to(dtype)
+    _check_k4(x, s, b, None, "stream")
+    _check_k4(x, s, b, torch.tensor([frames - 5], dtype=torch.int32, device=device), "stream")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 1024, 20, 16), (3, 12, 5, 8)])
+def test_aligned_row_beside_a_misaligned_row(device, dtype, shape):
+    """The same values from an aligned tensor and from one whose start is 4
+    bytes off (its rows bulk-copied between their 16-byte boundaries, the
+    head and tail by the block's threads, scalar accesses): each against the
+    plain version, and bit for bit against each other."""
+    B, C4, H, W = shape
+    n = B * C4 * H * W
+    x, (s, b) = _inputs(device, shape, C4 // 4, 2, 35)
+    x = x.to(dtype)
+    shift = 4 // x.element_size()
+    buf = torch.empty(n + shift, device=device, dtype=dtype)
+    off = buf[shift:].view(shape)
+    off.copy_(x)
+    g = torch.Generator(device=device).manual_seed(36)
+    dy = torch.randn((B, C4 // 4, 2 * H, 2 * W), device=device, generator=g).to(dtype)
+    dbuf = torch.empty(dy.numel() + shift, device=device, dtype=dtype)
+    dy_off = dbuf[shift:].view(dy.shape)
+    dy_off.copy_(dy)
+    lengths = torch.tensor([2 * W - 1, W + 1, 3][:B], dtype=torch.int32, device=device)
+    for lens in (None, lengths):
+        y_aligned = _check_k4(x, s, b, lens, "bulk")
+        y_off = _check_k4(off, s, b, lens, "bulk")
+        assert torch.equal(y_aligned, y_off)
+    dx_aligned = _check_k5(x, dy, s, b)
+    dx_off = _check_k5(off, dy_off, s, b)
+    assert torch.equal(dx_aligned, dx_off)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", [((2, 1024, 20, 112), (216, 150)),
+                                  ((2, 512, 40, 224), (431, 300))])
+def test_masked_conversion_sites(device, dtype, site):
+    """upSample1 and upSample2 of a 448-frame conversion bucket, lengths of
+    431 valid frames (216 at upSample1) beside a shorter one."""
+    shape, lens = site
+    x, (s, b) = _inputs(device, shape, shape[1] // 4, 2, 37)
+    x = x.to(dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    y = _check_k4(x, s, b, lengths, "bulk")
+    assert not y[0, :, :, lens[0]:].any() and not y[1, :, :, lens[1]:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 1024, 20, 16), (1, 8, 3, 5)])
+def test_nan_reaches_y_and_dx(device, dtype, shape):
+    """A NaN in one channel's input makes that channel's outputs and input
+    gradients NaN, and no other channel's."""
+    B, C4, H, W = shape
+    x, (s, b) = _inputs(device, shape, C4 // 4, 2, 38)
+    x = x.to(dtype)
+    x[0, 1, H - 1, W - 1] = float("nan")
+    g = torch.Generator(device=device).manual_seed(39)
+    dy = torch.randn((B, C4 // 4, 2 * H, 2 * W), device=device, generator=g).to(dtype)
+    y = ps.pixel_shuffle_in_swish(x, s, b)
+    _, mean, inv = ps.pixel_shuffle_in_swish_with_stats(x, s, b)
+    dx = ps.pixel_shuffle_in_swish_backward(x, dy, s, b, mean, inv)[0]
+    torch.cuda.synchronize()
+    assert y[0, 0].isnan().all() and dx[0, :4].isnan().all()
+    assert torch.isfinite(y[0, 1:]).all() and torch.isfinite(y[1:]).all()
+    assert torch.isfinite(dx[0, 4:]).all() and torch.isfinite(dx[1:]).all()

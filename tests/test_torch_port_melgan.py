@@ -40,6 +40,7 @@ from maskcyclegan_vc_tpu_torch.ops.melgan_stack import (
     MELGAN_STACK_KERNEL,
     melgan_resstack,
     melgan_resstack_plain,
+    reflect_pad,
 )
 
 torch.set_num_threads(1)
@@ -110,7 +111,8 @@ def _to_port(blocks):
             for b in blocks]
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 8), (1, 96, 16), (1, 64, 32), (2, 62, 64)])
+@pytest.mark.parametrize("shape", [(2, 64, 8), (1, 96, 16), (1, 64, 32), (2, 62, 64),
+                                   (2, 8, 32), (1, 4, 64)])
 @pytest.mark.parametrize("mode", ["plain", "emit_lrelu", "tail"])
 def test_stage_matches_jax_kernel(shape, mode):
     B, W, C = shape
@@ -210,8 +212,35 @@ def test_stage_refuses_what_it_cannot_run():
     port = _to_port(blocks)
     with pytest.raises(NotImplementedError):
         melgan_resstack(xt.clone().requires_grad_(), port)
-    with pytest.raises(ValueError):  # reflect padding by 9 needs W > 9
-        melgan_resstack(xt[..., :9].contiguous(), port)
+    with pytest.raises(ValueError):  # an empty sequence has nothing to mirror
+        melgan_resstack(xt[..., :0].contiguous(), port)
     with pytest.raises(ValueError):
         melgan_resstack(xt, port[:2])
     torch.testing.assert_close(melgan_resstack(xt, port), melgan_resstack_plain(xt, port))
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("p", [1, 3, 9])
+def test_reflect_pad_matches_numpy(W, p):
+    """``jnp.pad``'s reflection, which ``np.pad`` shares: for p >= W the
+    mirror repeats (a constant at W = 1), where ``F.pad`` refuses."""
+    x = np.random.RandomState(W * 10 + p).randn(2, 3, W).astype(np.float32)
+    got = reflect_pad(torch.from_numpy(x), p).numpy()
+    np.testing.assert_array_equal(got, np.pad(x, ((0, 0), (0, 0), (p, p)), mode="reflect"))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("T", [1, 2, 3, 4])
+def test_short_mels_match_jax(small_vocoder, T, fused):
+    """Mels of 1-4 frames, which JAX decodes, its fused form through its
+    Pallas kernel: conv_in's pad of 3 and the blocks' pads of up to 9
+    reflect past the edge (at T = 1 the first stage is W = 8 wide)."""
+    mel = np.random.RandomState(T).randn(2, 8, T).astype(np.float32)
+    want = np.asarray(JaxMelGAN(n_mels=8, ngf=4, fused_stages=fused, precision="highest")
+                      .apply(jax.tree.map(jnp.asarray, small_vocoder), jnp.asarray(mel)))
+    model = MelGANGenerator(8, 4)
+    model.load_state_dict(melgan_params_from_jax(small_vocoder), strict=True)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(mel)).numpy()
+    assert got.shape == want.shape == (2, T * HOP)
+    np.testing.assert_allclose(got, want, **MODEL_TOL)

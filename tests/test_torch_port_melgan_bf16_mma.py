@@ -91,11 +91,19 @@ def rnd(t: torch.Tensor) -> torch.Tensor:
 
 
 def reflect(p: torch.Tensor, W: int) -> torch.Tensor:
-    """melgan_stack.cu ``reflect``: the mirror of p, clamped for positions a
-    ragged tile computes past W and never stores."""
-    p = torch.where(p < 0, -p, p)
-    p = torch.where(p >= W, 2 * (W - 1) - p, p)
-    return p.clamp(0, W - 1)
+    """melgan_stack.cu ``reflect``: past W = 9 ``mirror_once``, the mirror
+    of p clamped for positions a ragged tile computes past W and never
+    stores; up to 9 the mirror repeating with period 2 (W - 1) (0 at
+    W = 1)."""
+    if W > 9:
+        p = torch.where(p < 0, -p, p)
+        p = torch.where(p >= W, 2 * (W - 1) - p, p)
+        return p.clamp(0, W - 1)
+    if W == 1:
+        return torch.zeros_like(p)
+    period = 2 * (W - 1)
+    p = p.remainder(period)
+    return torch.where(p < W, p, period - p)
 
 
 LANE = torch.arange(32)
@@ -364,3 +372,18 @@ def test_emulated_stage_matches_plain_bf16(C, emit, tile):
     assert torch.equal(got, rnd(got))  # bf16 values
     scale = want.abs().max().item()
     torch.testing.assert_close(got, want, rtol=0, atol=STAGE_TOL_BF16 * scale)
+
+
+@pytest.mark.parametrize("W", [1, 2, 5, 8])
+def test_emulated_sums_at_narrow_widths(W):
+    """A stage narrower than its pad of 9 (a mel of 1 frame reaches the first
+    stage at W = 8): the halo reflects again, as ``reflect_pad`` does."""
+    x, blocks = _stage_inputs(1, 16, W, 300 + W)
+    with torch.no_grad():
+        _, trace = emulated_stage(x, blocks, emit=False, tile=TILES[0])
+        for (cur, sums), d, bp in zip(trace, DILATIONS, blocks):
+            h, y = conv_sums(cur, {k: v.double() for k, v in bp.items()}, d)
+            for got, want in ((sums["h"], h), (sums["y"], y)):
+                assert not got.isnan().any()
+                torch.testing.assert_close(got, want, rtol=SUM_RTOL,
+                                           atol=SUM_RTOL * want.abs().max().item())
