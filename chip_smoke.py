@@ -16,9 +16,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 4. convert    the conversion CLI (cli/test.py main, --device cuda) on a
               full-width generator with seeded random weights, written as a
               JAX-layout checkpoint, over 5 synthetic utterances; the launch
-              counts of the run and K4's routes (every row bulk-copied into
-              shared memory), the output held against the CPU plain path,
-              and the per-utterance latency.
+              counts of the run and K1's and K4's routes (every row
+              bulk-copied into shared memory), the output held against the
+              CPU plain path, and the per-utterance latency.
 5. decode     the conversion CLI on the preprocessed speakers with a
               full-width melgan-neurips vocoder (seeded random weights saved
               as a state_dict) and --compute_mcd: 12 K9 calls per utterance
@@ -42,7 +42,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               a step at a time and as graph replays (with the device-busy
               share of each, and the replays' batches held bit for bit
               against the eager sampler's), each step's launch counts and
-              K4's routes (all bulk-copied), peak memory and a
+              K1's, K3's and K4's routes (all bulk-copied), peak memory and a
               profiler breakdown.
 7. train bf16 the same CLI run as 6 with --dtype bfloat16: launches per
               replayed step on the bf16 entries of K1-K5 only (the plot's
@@ -81,8 +81,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               exists, and its bound: K1-K5 at every call site recorded in one
               431-frame conversion (unmasked and with the call's lengths) and
               in one training step at each size (unmasked and with lengths
-              one frame short), the fused backward also against autograd, K4
-              with the route each site takes; K6
+              one frame short), the fused backward also against autograd, K1,
+              K3 and K4 with the route each site takes; K6
               and K7 (exact) at every inverse-shuffle site of the 1 x 320
               step; the bf16 entries of K1-K7 likewise at the sites of the
               bf16 steps; K8 on the audio of every bucket the preprocess
@@ -634,10 +634,10 @@ def measure_sites(sites, device, label: str):
             lib_ms = None
             extra = f"dscale/dbias at {ratio:.3g} of their summation bound "
         else:
-            before = {d: dict(r) for d, r in ps.ROUTES.items()}
+            before = route_counts()
             err, lengths = check_forward(site, x, vecs, device)
-            taken = sorted({r for d, rs in ps.ROUTES.items() for r, n in rs.items()
-                            if n > before[d][r]})
+            taken = sorted({k.split("/")[1] for k, n in route_counts().items()
+                            if n > before.get(k, 0)})
             ms = device_ms(lambda: spec["fn"](x, *vecs), reps)
             ms_masked = device_ms(lambda: spec["fn"](x, *vecs, lengths), reps)
             plain_ms = device_ms(lambda: spec["plain"](x, *vecs), reps)
@@ -646,7 +646,7 @@ def measure_sites(sites, device, label: str):
             eager_ms = call_ms(lambda: spec["fn"](x, *vecs))
         b_ms, bound_by = bound_ms(site.kernel, site.shape, spec["n_vecs"])
         masked = "" if site.lengths is None else f"lengths {list(site.lengths)} "
-        if base_name(site.kernel) == "ps_in_swish":
+        if base_name(site.kernel) in ROUTED:
             masked += f"route {' '.join(taken)} "
         tol = ("atol=rtol=1e-5" if x.dtype == torch.float32 else
                "one bf16 rounding" if ms_masked is not None else "two bf16 roundings")
@@ -788,7 +788,8 @@ def profile(fn, wall_s: float, what: str):
         print(f"profile: {what}: the profiler recorded no device time: not measured")
         return None
     groups = {
-        "the port's kernels": r"in_kernel|ps_in_swish|pixel_shuffle_kernel|melspec_kernel|"
+        "the port's kernels": r"in_kernel|in_staged_kernel|ps_in_swish|pixel_shuffle_kernel|"
+                              r"melspec_kernel|"
                               r"resblock_(?:tc|bf16)_kernel|tail_kernel",
         "convolutions (cuDNN)": r"conv|xmma|gemm|cudnn|wgrad|dgrad|fprop|winograd|implicit",
         "Adam (foreach)": r"multi_tensor_apply|foreach",
@@ -815,26 +816,34 @@ def profile(fn, wall_s: float, what: str):
 # The audio path: preprocessing (K8) and decoding (K9)
 # ---------------------------------------------------------------------------
 
+# The kernels whose C entry reports a route (K1, K3, K4), and their route
+# counters by dtype. K2 and K5 have one route: their launches are their
+# counts.
+ROUTED = {"in_glu": in_gate.ROUTES["in_glu"], "in_swish": in_gate.ROUTES["in_swish"],
+          "ps_in_swish": ps.ROUTES}
+
+
 def reset_counts() -> None:
     for spec in KERNELS.values():
         spec["counter"].launches = 0
-    for routes in ps.ROUTES.values():
-        for r in routes:
-            routes[r] = 0
+    for by_dtype in ROUTED.values():
+        for routes in by_dtype.values():
+            for r in routes:
+                routes[r] = 0
 
 
 def route_counts() -> dict:
-    """K4's launches since the counts were reset by the route its blocks
-    took, those taken at all ("ps_in_swish/bulk", "ps_in_swish_bf16/stream").
-    K5 has one route, its row bulk-copied: its launches are its counts."""
-    return {f"{entry_name('ps_in_swish', dtype)}/{r}": n
-            for dtype, routes in ps.ROUTES.items() for r, n in routes.items() if n}
+    """K1's, K3's and K4's launches since the counts were reset by the route
+    their blocks took, those taken at all ("in_glu/bulk",
+    "ps_in_swish_bf16/stream")."""
+    return {f"{entry_name(k, dtype)}/{r}": n for k, by_dtype in ROUTED.items()
+            for dtype, routes in by_dtype.items() for r, n in routes.items() if n}
 
 
 def bulk_routes(launches: dict) -> dict:
-    """The route counts of a run that launched ``launches``: every K4 launch
-    with its row bulk-copied into shared memory."""
-    return {f"{k}/bulk": n for k, n in launches.items() if base_name(k) == "ps_in_swish" and n}
+    """The route counts of a run that launched ``launches``: every K1, K3
+    and K4 launch with its rows bulk-copied into shared memory."""
+    return {f"{k}/bulk": n for k, n in launches.items() if base_name(k) in ROUTED and n}
 
 
 def counts() -> dict:
@@ -2028,16 +2037,17 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "ms_32x128": step32[k]["ms"], "bound_ms_32x128": step32[k]["bound_ms"]})
-        if base_name(k) == "ps_in_swish":
-            # K4's launches by route in one eager step at each size and in
-            # one 431-frame conversion: all bulk-copied (K5 has that route
-            # only).
+        if base_name(k) in ROUTED:
+            # K1's, K3's and K4's launches by route in one eager step at
+            # each size and (K1, K4) in one 431-frame conversion: all
+            # bulk-copied (K2 and K5 have one route).
             kernels[-1].update({
                 f"routes_per_step{size}": {r: n for r, n in per.items()
                                            if r.startswith(f"{k}/")}
                 for size, per in (("", per_step1), ("_32x128", per_step32))})
-            if k == "ps_in_swish":
-                kernels[-1]["routes_per_conversion"] = convert_routes
+            if k in PER_FORWARD:
+                kernels[-1]["routes_per_conversion"] = {
+                    r: n for r, n in convert_routes.items() if r.startswith(f"{k}/")}
     # K6, K7: ms, plain_ms, library_ms and bound_ms summed over the 1 x 320
     # step's K6 sites (K7 at the transposed shapes): six in f32, three in
     # bf16; launches: the long-crop runs' (K7 is on no path: K6's gradient,

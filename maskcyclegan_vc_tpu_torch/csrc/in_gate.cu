@@ -25,27 +25,64 @@
 // two-pass (mean, then the centred variance), biased, eps 1e-5.
 //
 // Bound on an H100 SXM (3.35 TB/s): memory. The kernel must read each input
-// float once and write each output float once; the arithmetic is about ten
-// flops per element (swish adds one exp), two orders of magnitude under the
-// f32 rate. The design gives every row to one thread group (a warp for rows
-// of up to kWarpRowMaxS values, such as the 5120 rows of 112 in
-// conv1dto2dLayer_tfan or the discriminator's downSample3 rows of 80 at 64
-// frames; a block of kBlockThreads for long rows, such as the generator's
-// downSample1 rows of 8960), so the
-// statistics need no second launch and no atomics. Its three passes over a
-// row (sum, centred squares, normalise and write) read the row three times;
-// the second and third reads hit a row the same group has just read, which
-// L2 (50 MB) still holds at this model's sizes, so device memory sees about
-// one read and one write per element (2 bytes each in bf16). Loads are
-// plain coalesced elements; wider loads and keeping the row on chip are left
-// for later work.
+// element once and write each output element once; the arithmetic is about
+// ten flops per element (swish and the sigmoid add one exp), under the f32
+// rate, but not by much in bf16, where instruction issue rather than bytes
+// set the pace of a kernel that spends a division or an IEEE exp per
+// element. Every row goes to one thread group, so the statistics need no
+// second launch and no atomics.
+//
+// K2 (in_forward): in_kernel, a warp per row of up to kWarpRowMaxS values
+// and a block of kBlockThreads for longer rows, three passes over the row
+// (sum, centred squares, normalise and write), each element a scalar load;
+// the second and third passes read the row again, from L2.
+//
+// K1 (in_glu_forward) and K3 (in_swish_forward): in_staged_kernel.
+// - Stage once. A block's rows are bulk-copied into shared memory by one
+//   thread (cp.async.bulk, the TMA's 1-D form, completing on an mbarrier):
+//   consecutive channels of a sample are contiguous, so a block's rows are
+//   one copy, two for K1 (the h rows, and the g rows C*S elements further
+//   on). DRAM is read exactly once. A run whose start or end is off a
+//   16-byte boundary (bf16 with S odd, or a tensor that starts off one) is
+//   bulk-copied from its first to its last boundary, and the block's
+//   threads copy the head and tail, under 16 bytes each.
+// - Rows to threads. A row of at most kGroupMaxUnits units goes to a group
+//   of 4-32 consecutive lanes (the least power of two that leaves a thread
+//   at most kGroupUnits units, more where the launch is too small to fill
+//   the card), reduced by shuffles within the group; a block holds up to
+//   kGroupBlockThreads threads of such groups, fewer where that would leave
+//   SMs without a block. A longer row takes a whole block, whose threads
+//   follow from how many blocks fit an SM by shared memory and how many
+//   rows there are per SM, so that kThreadsPerSM threads stay resident
+//   where the rows allow. A block's rows belong to one sample.
+// - Units. A thread takes V = 4 (f32) or 8 (bf16) consecutive columns of
+//   one line of its row, 16 bytes, and walks its units with no division
+//   per unit; a unit with a column at w >= L tests each element. Where W is
+//   a multiple of V and x and y are 16-byte aligned every access is 16
+//   bytes; else a unit takes scalar accesses and a line's last unit is
+//   ragged.
+// - Statistics from shared memory: the sums, then the centred squares;
+//   K1 reduces h and g together, so a row takes two reductions, each one
+//   barrier for a whole-block row and none for a group.
+// - Epilogue with the SFU's exp and reciprocal (__expf, __fdividef) and one
+//   cvt for a bf16 pair.
+// - A row past a block's shared memory (f32 K1 rows of more than 28,928
+//   elements: a conversion bucket past about 1446 frames) takes the
+//   streaming route: a whole block, the same units read from device memory
+//   in three passes. The entry reports the route it launched.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr float kEps = 1e-5f;
+
+// ---------------------------------------------------------------------------
+// K2: in_kernel
+// ---------------------------------------------------------------------------
+
 constexpr int kBlockThreads = 512;
 constexpr int kWarpRowsPerBlock = 8;
 constexpr int kWarpRowMaxS = 1024;
@@ -79,8 +116,6 @@ __device__ __forceinline__ float row_sum(float v, float* smem) {
   return kWarpRow ? warp_sum(v) : block_sum(v, smem);
 }
 
-__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
-
 __device__ __forceinline__ float load(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
@@ -90,9 +125,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, size_t i, float v) {
   p[i] = __float2bfloat16_rn(v);
 }
 
-// What follows the normalisation: nothing, swish, or the GLU gate.
-enum Epilogue { kPlain = 0, kSwish = 1, kGlu = 2 };
-
 // Offset in a row of width W of the i-th valid position, when the first L
 // columns of each of the row's H lines are valid.
 __device__ __forceinline__ int valid_offset(int i, int L, int W) {
@@ -100,15 +132,10 @@ __device__ __forceinline__ int valid_offset(int i, int L, int W) {
   return h * W + (i - h * L);
 }
 
-template <typename T, bool kWarpRow, int kEpilogue>
-__global__ void in_kernel(const T* __restrict__ x,
-                          const float* __restrict__ scale_h,
-                          const float* __restrict__ bias_h,
-                          const float* __restrict__ scale_g,
-                          const float* __restrict__ bias_g,
-                          const int* __restrict__ lengths,
+template <typename T, bool kWarpRow>
+__global__ void in_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                          const float* __restrict__ bias, const int* __restrict__ lengths,
                           T* __restrict__ y, int B, int C, int S, int W) {
-  constexpr bool kGated = kEpilogue == kGlu;
   __shared__ float smem[33];
   int row, t, nt;
   if (kWarpRow) {
@@ -126,65 +153,495 @@ __global__ void in_kernel(const T* __restrict__ x,
   const int n = (S / W) * L;
   const float inv_n = 1.f / (float)max(n, 1);
 
-  const T* xh = x + ((kGated ? (size_t)b * 2 * C + c : (size_t)row) * S);
-  const T* xg = xh + (size_t)C * S;  // read only when kGated
+  const T* xr = x + (size_t)row * S;
   T* yr = y + (size_t)row * S;
 
-  float sh = 0.f, sg = 0.f;
-  for (int i = t; i < n; i += nt) {
-    const int k = valid_offset(i, L, W);
-    sh += load(xh, k);
-    if (kGated) sg += load(xg, k);
-  }
+  float sh = 0.f;
+  for (int i = t; i < n; i += nt) sh += load(xr, valid_offset(i, L, W));
   const float mh = row_sum<kWarpRow>(sh, smem) * inv_n;
-  const float mg = kGated ? row_sum<kWarpRow>(sg, smem) * inv_n : 0.f;
 
-  float qh = 0.f, qg = 0.f;
+  float qh = 0.f;
   for (int i = t; i < n; i += nt) {
-    const int k = valid_offset(i, L, W);
-    const float dh = load(xh, k) - mh;
+    const float dh = load(xr, valid_offset(i, L, W)) - mh;
     qh += dh * dh;
-    if (kGated) {
-      const float dg = load(xg, k) - mg;
-      qg += dg * dg;
-    }
   }
-  const float ah = rsqrtf(row_sum<kWarpRow>(qh, smem) * inv_n + kEps) * scale_h[c];
-  const float bh = bias_h[c] - mh * ah;
-  float ag = 0.f, bg = 0.f;
-  if (kGated) {
-    ag = rsqrtf(row_sum<kWarpRow>(qg, smem) * inv_n + kEps) * scale_g[c];
-    bg = bias_g[c] - mg * ag;
-  }
+  const float ah = rsqrtf(row_sum<kWarpRow>(qh, smem) * inv_n + kEps) * scale[c];
+  const float bh = bias[c] - mh * ah;
 
   for (int s = t; s < S; s += nt) {
     float out = 0.f;
-    if (s % W < L) {
-      out = load(xh, s) * ah + bh;
-      if (kEpilogue == kSwish) out = out / (1.f + expf(-out));
-      if (kGated) out *= sigmoid(load(xg, s) * ag + bg);
-    }
+    if (s % W < L) out = load(xr, s) * ah + bh;
     store(yr, s, out);
   }
 }
 
-template <typename T, int kEpilogue>
-int launch(const void* x, const float* scale_h, const float* bias_h,
-           const float* scale_g, const float* bias_g, const int* lengths,
-           void* y, int B, int C, int S, int W, void* stream) {
+template <typename T>
+int launch_in(const void* x, const float* scale, const float* bias, const int* lengths,
+              void* y, int B, int C, int S, int W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = B * C;
   if (S <= kWarpRowMaxS) {
     const int blocks = (rows + kWarpRowsPerBlock - 1) / kWarpRowsPerBlock;
-    in_kernel<T, true, kEpilogue><<<blocks, 32 * kWarpRowsPerBlock, 0, st>>>(
-        static_cast<const T*>(x), scale_h, bias_h, scale_g, bias_g, lengths,
-        static_cast<T*>(y), B, C, S, W);
+    in_kernel<T, true><<<blocks, 32 * kWarpRowsPerBlock, 0, st>>>(
+        static_cast<const T*>(x), scale, bias, lengths, static_cast<T*>(y), B, C, S, W);
   } else {
-    in_kernel<T, false, kEpilogue><<<rows, kBlockThreads, 0, st>>>(
-        static_cast<const T*>(x), scale_h, bias_h, scale_g, bias_g, lengths,
-        static_cast<T*>(y), B, C, S, W);
+    in_kernel<T, false><<<rows, kBlockThreads, 0, st>>>(
+        static_cast<const T*>(x), scale, bias, lengths, static_cast<T*>(y), B, C, S, W);
   }
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K1 and K3: in_staged_kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kVecBytes = 16;           // one vector access
+constexpr int kMaxThreads = 512;        // a block's threads, at most
+constexpr int kThreadsPerSM = 2048;
+constexpr int kMaxBlocksPerSM = 32;
+constexpr int kSmemPerSM = 233472;      // 228 KB an SM on an H100
+constexpr int kBlockReserve = 1024;     // shared memory the card keeps per block
+constexpr int kStaticSmem = 1024;       // kept back for a block's static shared memory
+constexpr uint32_t kBulkChunk = 65536;  // bytes per cp.async.bulk
+constexpr int kMinGroup = 4;            // threads of a row's group, at least
+constexpr int kGroupUnits = 4;          // units a group's thread takes, at most
+constexpr int kGroupMaxUnits = 128;     // longer rows take a whole block
+constexpr int kGroupBlockThreads = 256; // threads of a block of groups, at most
+enum Route { kBulk = 0, kStream = 1 };
+// What follows the normalisation: swish (K3) or the GLU gate (K1).
+enum Epilogue { kSwish = 1, kGlu = 2 };
+
+template <typename T>
+struct Elem;
+
+// Four f32 in 16 bytes.
+template <>
+struct Elem<float> {
+  static constexpr int V = kVecBytes / 4;
+  static __device__ __forceinline__ void unpack(const uint4& r, float* v) {
+    v[0] = __uint_as_float(r.x);
+    v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z);
+    v[3] = __uint_as_float(r.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* v) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                      __float_as_uint(v[2]), __float_as_uint(v[3]));
+  }
+  static __device__ __forceinline__ float get(const float* p, int k) { return p[k]; }
+  static __device__ __forceinline__ void put(float* p, int k, float v) { p[k] = v; }
+};
+
+// Eight bf16 in 16 bytes; a bf16's bits are the top half of its f32's.
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int V = kVecBytes / 2;
+  static __device__ __forceinline__ void unpack2(uint32_t w, float* v) {
+    v[0] = __uint_as_float(w << 16);
+    v[1] = __uint_as_float(w & 0xffff0000u);
+  }
+  static __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // one cvt.rn.bf16x2.f32
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ void unpack(const uint4& r, float* v) {
+    unpack2(r.x, v);
+    unpack2(r.y, v + 2);
+    unpack2(r.z, v + 4);
+    unpack2(r.w, v + 6);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* v) {
+    return make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
+                      pack2(v[6], v[7]));
+  }
+  static __device__ __forceinline__ float get(const __nv_bfloat16* p, int k) {
+    return __bfloat162float(p[k]);
+  }
+  static __device__ __forceinline__ void put(__nv_bfloat16* p, int k, float v) {
+    p[k] = __float2bfloat16_rn(v);
+  }
+};
+
+// m consecutive elements at p into v[0..m) as f32, v[m..V) = 0. kVec: m is V
+// and p is 16-byte aligned, and one 16-byte load reads them.
+template <bool kVec, typename T>
+__device__ __forceinline__ void load_unit(const T* p, int m, float (&v)[Elem<T>::V]) {
+  constexpr int V = Elem<T>::V;
+  if constexpr (kVec) {
+    Elem<T>::unpack(*reinterpret_cast<const uint4*>(p), v);
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = k < m ? Elem<T>::get(p, k) : 0.f;
+  }
+}
+
+// v[0..m) to the m consecutive elements at p, each rounded once to T.
+template <bool kVec, typename T>
+__device__ __forceinline__ void store_unit(T* p, int m, const float (&v)[Elem<T>::V]) {
+  constexpr int V = Elem<T>::V;
+  if constexpr (kVec) {
+    *reinterpret_cast<uint4*>(p) = Elem<T>::pack(v);
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      if (k < m) Elem<T>::put(p, k, v[k]);
+  }
+}
+
+// A thread's walk over its units u = t, t + gt, t + 2 gt, ... of a row
+// whose lines of width W hold nW = ceil(W / V) units each: unit u is line
+// h = u / nW, columns w0 .. w0 + n - 1 with w0 = (u - h * nW) * V, at row
+// offset h * W + w0. The divisions by nW are made once, where the walk
+// starts; a step adds gt's quotient and remainder.
+struct Walk {
+  int h, wu, dh, dw;
+  __device__ __forceinline__ Walk(int t, int gt, int nW) {
+    h = t / nW, wu = t - h * nW;
+    dh = gt / nW, dw = gt - dh * nW;
+  }
+  __device__ __forceinline__ void next(int nW) {
+    h += dh, wu += dw;
+    if (wu >= nW) wu -= nW, ++h;
+  }
+};
+
+// Sums each v[i] over the thread's group of gt threads: gt <= 32 a power of
+// two, consecutive lanes of one warp, or gt = blockDim.x, the whole block.
+// Every thread of the group receives the totals. red holds kN x 32 floats
+// that no other reduction of the kernel uses, so a whole block's sum costs
+// one barrier and a group's none. Every thread of the block must call it.
+template <int kN>
+__device__ __forceinline__ void group_sum(float (&v)[kN], int gt, float* red) {
+  const int width = min(gt, 32);
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+    for (int o = width >> 1; o > 0; o >>= 1) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+  if (gt <= 32) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+    if (lane == 0) red[i * 32 + warp] = v[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kN; ++i) v[i] = warp_sum(lane < warps ? red[i * 32 + lane] : 0.f);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The bytes an array of `bytes` bytes at p takes in shared memory when it is
+// staged at an address congruent to p modulo 16: from p's 16-byte boundary
+// to the one after its end.
+__host__ __device__ __forceinline__ size_t staged_bytes(const void* p, size_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) % kVecBytes + bytes + kVecBytes - 1) / kVecBytes *
+         kVecBytes;
+}
+
+// Copies kCount global arrays of n elements each into shared memory from
+// smem on, array a at dst[a], an address congruent to src[a]'s modulo 16
+// bytes, and returns when the whole block can read them. One thread issues
+// cp.async.bulk copies of each array's 16-byte-aligned body, completing on
+// the mbarrier bar; the block's threads copy the head before the first
+// boundary and the tail after the last, under 16 bytes each, where an
+// array starts or ends off one.
+template <int kCount, typename T>
+__device__ void stage(unsigned char* smem, const T* (&src)[kCount], int n,
+                      const T* (&dst)[kCount], uint64_t* bar) {
+  const uint32_t bytes = (uint32_t)n * sizeof(T);
+  int head[kCount], tail[kCount];  // elements: [0, head) and [tail, n) by threads
+  uint32_t body[kCount], total = 0;
+  T* to[kCount];
+#pragma unroll
+  for (int a = 0; a < kCount; ++a) {
+    const uint32_t lead = reinterpret_cast<uintptr_t>(src[a]) % kVecBytes;
+    to[a] = reinterpret_cast<T*>(smem + lead);
+    const uint32_t h = min(bytes, (kVecBytes - lead) % kVecBytes);
+    body[a] = (bytes - h) / kVecBytes * kVecBytes;
+    head[a] = h / sizeof(T);
+    tail[a] = (h + body[a]) / sizeof(T);
+    total += body[a];
+    smem += staged_bytes(src[a], bytes);
+  }
+  const uint32_t b = smem_addr(bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+                 "r"(total)
+                 : "memory");
+#pragma unroll
+    for (int a = 0; a < kCount; ++a)
+      for (uint32_t off = 0; off < body[a]; off += kBulkChunk)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+            "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(to[a] + head[a]) + off),
+            "l"(reinterpret_cast<const char*>(src[a] + head[a]) + off),
+            "r"(min(kBulkChunk, body[a] - off)), "r"(b)
+            : "memory");
+  }
+#pragma unroll
+  for (int a = 0; a < kCount; ++a) {
+    const int edge = head[a] + (n - tail[a]);
+    for (int k = threadIdx.x; k < edge; k += blockDim.x) {
+      const int e = k < head[a] ? k : tail[a] + k - head[a];
+      to[a][e] = src[a][e];
+    }
+    dst[a] = to[a];
+  }
+  __syncthreads();
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b)
+        : "memory");
+}
+
+// swish(z) = z * sigmoid(z) and sigmoid(v), with the SFU's exp and
+// reciprocal (a few ulp in f32, far inside the 1e-5 the kernels are held
+// to; a NaN stays NaN, and z / inf is -0 for large negative z).
+__device__ __forceinline__ float swish(float z) { return __fdividef(z, 1.f + __expf(-z)); }
+__device__ __forceinline__ float sigmoid(float v) {
+  return __fdividef(1.f, 1.f + __expf(-v));
+}
+
+// Adds to s[a], over this thread's units of its row (the walk from start,
+// units t, t + gt, ...), array a's valid elements (w < L) less c[a], or
+// with kSquare their squares. A unit whose columns are all valid skips the
+// test. row: the arrays in shared memory, or in device memory on the
+// streaming route.
+template <bool kVec, bool kSquare, int A, typename T>
+__device__ __forceinline__ void unit_sums(const T* const (&row)[A], Walk w, int t, int gt,
+                                          int nU, int nW, int W, int L, const float (&c)[A],
+                                          float (&s)[A]) {
+  constexpr int V = Elem<T>::V;
+  for (int u = t; u < nU; u += gt, w.next(nW)) {
+    const int w0 = w.wu * V, n = min(V, W - w0), off = w.h * W + w0;
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      float v[V];
+      load_unit<kVec>(row[a] + off, n, v);
+      if (w0 + V <= L) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const float d = v[k] - c[a];
+          s[a] += kSquare ? d * d : d;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const float d = v[k] - c[a];
+          if (w0 + k < L) s[a] += kSquare ? d * d : d;  // past a ragged unit's end: w >= W
+        }
+      }
+    }
+  }
+}
+
+// One block: rows c0 .. c0 + R - 1 (those below C) of sample b, R =
+// blockDim.x / gt, row j to threads j*gt .. j*gt + gt - 1.
+template <typename T, int kEpilogue, bool kStream, bool kVec>
+__global__ void __launch_bounds__(kMaxThreads)
+    in_staged_kernel(const T* __restrict__ x, const float* __restrict__ scale_h,
+                  const float* __restrict__ bias_h, const float* __restrict__ scale_g,
+                  const float* __restrict__ bias_g, const int* __restrict__ lengths,
+                  T* __restrict__ y, int C, int H, int W, int gt) {
+  constexpr bool kGated = kEpilogue == kGlu;
+  constexpr int A = kGated ? 2 : 1;  // arrays: h, and g for the GLU
+  constexpr int V = Elem<T>::V;
+  extern __shared__ __align__(128) unsigned char dyn[];
+  __shared__ __align__(8) uint64_t bar;
+  __shared__ float red[2 * A * 32];
+  const int S = H * W;
+  const int R = blockDim.x / gt;
+  const int groups = (C + R - 1) / R;  // blocks a sample
+  const int b = blockIdx.x / groups;
+  const int c0 = (blockIdx.x - b * groups) * R;
+  const int rows = min(R, C - c0);
+  const int j = threadIdx.x / gt, t = threadIdx.x - j * gt;
+  const bool live = j < rows;  // an idle group still joins the reductions
+  const int c = c0 + j;
+
+  const T* src[A];
+  src[0] = x + ((size_t)b * A * C + c0) * S;
+  if constexpr (kGated) src[1] = src[0] + (size_t)C * S;
+  const T* row[A];
+  if constexpr (kStream) {
+#pragma unroll
+    for (int a = 0; a < A; ++a) row[a] = src[a];
+  } else {
+    stage<A>(dyn, src, rows * S, row, &bar);
+  }
+#pragma unroll
+  for (int a = 0; a < A; ++a) row[a] += (size_t)j * S;
+
+  const int L = lengths ? min(max(lengths[b], 0), W) : W;
+  const int nW = (W + V - 1) / V, nU = H * nW;
+  const float inv_n = 1.f / (float)max(H * L, 1);
+  const Walk start(t, gt, nW);
+
+  float zero[A], m[A], q[A];
+#pragma unroll
+  for (int a = 0; a < A; ++a) zero[a] = m[a] = q[a] = 0.f;
+  if (live) unit_sums<kVec, false>(row, start, t, gt, nU, nW, W, L, zero, m);
+  group_sum(m, gt, red);
+#pragma unroll
+  for (int a = 0; a < A; ++a) m[a] *= inv_n;
+  if (live) unit_sums<kVec, true>(row, start, t, gt, nU, nW, W, L, m, q);
+  group_sum(q, gt, red + A * 32);
+  if (!live) return;
+
+  const float ah = rsqrtf(q[0] * inv_n + kEps) * scale_h[c];
+  const float bh = bias_h[c] - m[0] * ah;
+  float ag = 0.f, bg = 0.f;
+  if constexpr (kGated) {
+    ag = rsqrtf(q[1] * inv_n + kEps) * scale_g[c];
+    bg = bias_g[c] - m[1] * ag;
+  }
+  T* yr = y + ((size_t)b * C + c) * S;
+  Walk w = start;
+  for (int u = t; u < nU; u += gt, w.next(nW)) {
+    const int w0 = w.wu * V, n = min(V, W - w0), off = w.h * W + w0;
+    float h[V], g[V], out[V];
+    load_unit<kVec>(row[0] + off, n, h);
+    if constexpr (kGated) load_unit<kVec>(row[A - 1] + off, n, g);
+    const bool full = w0 + V <= L;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      float z = h[k] * ah + bh;
+      if constexpr (kGated) z *= sigmoid(g[k] * ag + bg);
+      else z = swish(z);
+      out[k] = full || w0 + k < L ? z : 0.f;
+    }
+    store_unit<kVec>(yr + off, n, out);
+  }
+}
+
+int device_attribute(cudaDeviceAttr attr) {
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&v, attr, dev);
+  return v;
+}
+
+// The most shared memory one block's rows may take.
+int smem_limit() {
+  static const int limit =
+      device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin) - kStaticSmem;
+  return limit;
+}
+
+int sm_count() {
+  static const int n = device_attribute(cudaDevAttrMultiProcessorCount);
+  return n;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % kVecBytes == 0; }
+
+// The most bytes an array of `bytes` bytes takes staged (staged_bytes) where
+// it starts at p + k * stride bytes for any k: every block's h and g rows
+// start so, with stride the row's bytes.
+size_t staged_max(const void* p, size_t bytes, size_t stride) {
+  size_t most = 0;
+  for (int k = 0; k < kVecBytes; ++k) {
+    const size_t n = staged_bytes(static_cast<const char*>(p) + k * stride, bytes);
+    if (n > most) most = n;
+  }
+  return most;
+}
+
+struct Plan {
+  int route;    // Route
+  bool vec;     // 16-byte accesses: W a multiple of V, x and y aligned
+  int gt;       // threads a row
+  int threads;  // threads a block: rows a block times gt
+  int blocks;
+  size_t smem;  // dynamic shared memory
+};
+
+// arrays: 2 for K1 (h and g rows), 1 for K3.
+Plan plan(const void* x, const void* y, int B, int C, int S, int W, int esize, int arrays) {
+  const int V = kVecBytes / esize;
+  const int nU = (S / W) * ((W + V - 1) / V);
+  const size_t row = (size_t)S * esize;
+  Plan p;
+  p.route = kBulk;
+  p.vec = W % V == 0 && aligned16(x) && aligned16(y);
+  int per_block = 1;  // rows a block
+  if (nU <= kGroupMaxUnits) {
+    p.gt = kMinGroup;
+    while (p.gt * kGroupUnits < nU && p.gt < 32) p.gt <<= 1;
+    // Where all the rows' threads fit the card twice over, more threads a
+    // row: a launch that small is bound by latency, not by issue.
+    while (p.gt < 32 && p.gt < nU &&
+           (size_t)B * C * p.gt * 2 <= (size_t)sm_count() * kThreadsPerSM)
+      p.gt <<= 1;
+    const int least = 32 / p.gt;  // a block is whole warps
+    per_block = kGroupBlockThreads / p.gt;
+    while (per_block > least &&
+           (size_t)B * ((C + per_block - 1) / per_block) < (size_t)sm_count())
+      per_block >>= 1;
+    p.threads = per_block * p.gt;
+    p.smem = arrays * staged_max(x, per_block * row, row);
+  } else {
+    const size_t bytes = arrays * staged_max(x, row, row);
+    const int per_row = (nU + 31) / 32 * 32;
+    if (bytes > (size_t)smem_limit()) {
+      p.route = kStream;
+      p.smem = 0;
+      p.threads = min(kMaxThreads, per_row);
+    } else {
+      const int rows_per_sm = (B * C + sm_count() - 1) / sm_count();
+      int per_sm =
+          min(kMaxBlocksPerSM, kSmemPerSM / (int)(bytes + kBlockReserve + kStaticSmem));
+      per_sm = max(1, min(per_sm, rows_per_sm));
+      p.smem = bytes;
+      p.threads = max(32, min(min(kMaxThreads, kThreadsPerSM / per_sm / 32 * 32), per_row));
+    }
+    p.gt = p.threads;
+  }
+  p.blocks = B * ((C + per_block - 1) / per_block);
+  return p;
+}
+
+template <typename T, int kEpilogue, bool kStream, bool kVec>
+int launch_staged(const Plan& p, const void* x, const float* scale_h, const float* bias_h,
+                  const float* scale_g, const float* bias_g, const int* lengths, void* y,
+                  int C, int S, int W, cudaStream_t stream) {
+  auto kernel = in_staged_kernel<T, kEpilogue, kStream, kVec>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_limit());
+  if (attr != cudaSuccess) return (int)attr;
+  kernel<<<p.blocks, p.threads, p.smem, stream>>>(static_cast<const T*>(x), scale_h, bias_h,
+                                                   scale_g, bias_g, lengths,
+                                                   static_cast<T*>(y), C, S / W, W, p.gt);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int kEpilogue>
+int staged_forward(const void* x, const float* scale_h, const float* bias_h,
+                   const float* scale_g, const float* bias_g, const int* lengths, void* y,
+                   int B, int C, int S, int W, int* route, void* stream) {
+  const Plan p = plan(x, y, B, C, S, W, sizeof(T), kEpilogue == kGlu ? 2 : 1);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route) *route = p.route;
+  if (p.route == kStream)
+    return p.vec ? launch_staged<T, kEpilogue, true, true>(p, x, scale_h, bias_h, scale_g,
+                                                           bias_g, lengths, y, C, S, W, s)
+                 : launch_staged<T, kEpilogue, true, false>(p, x, scale_h, bias_h, scale_g,
+                                                            bias_g, lengths, y, C, S, W, s);
+  return p.vec ? launch_staged<T, kEpilogue, false, true>(p, x, scale_h, bias_h, scale_g,
+                                                          bias_g, lengths, y, C, S, W, s)
+               : launch_staged<T, kEpilogue, false, false>(p, x, scale_h, bias_h, scale_g,
+                                                           bias_g, lengths, y, C, S, W, s);
 }
 
 }  // namespace
@@ -196,48 +653,53 @@ extern "C" {
 int in_forward(const void* x, const float* scale, const float* bias,
                const int* lengths, void* y, int B, int C, int S, int W,
                void* stream) {
-  return launch<float, kPlain>(x, scale, bias, nullptr, nullptr, lengths, y,
-                               B, C, S, W, stream);
+  return launch_in<float>(x, scale, bias, lengths, y, B, C, S, W, stream);
 }
 
 int in_forward_bf16(const void* x, const float* scale, const float* bias,
                     const int* lengths, void* y, int B, int C, int S, int W,
                     void* stream) {
-  return launch<__nv_bfloat16, kPlain>(x, scale, bias, nullptr, nullptr,
-                                       lengths, y, B, C, S, W, stream);
+  return launch_in<__nv_bfloat16>(x, scale, bias, lengths, y, B, C, S, W, stream);
 }
 
-// swish(IN(x)); the same layout as in_forward.
+// swish(IN(x)); the same layout as in_forward. route (or null) receives the
+// route launched: 0 the rows bulk-copied into shared memory, 1 each row
+// streamed from device memory.
 int in_swish_forward(const void* x, const float* scale, const float* bias,
                      const int* lengths, void* y, int B, int C, int S, int W,
-                     void* stream) {
-  return launch<float, kSwish>(x, scale, bias, nullptr, nullptr, lengths, y,
-                               B, C, S, W, stream);
+                     int* route, void* stream) {
+  return staged_forward<float, kSwish>(x, scale, bias, nullptr, nullptr, lengths, y, B, C,
+                                       S, W, route, stream);
 }
 
 int in_swish_forward_bf16(const void* x, const float* scale,
                           const float* bias, const int* lengths, void* y,
-                          int B, int C, int S, int W, void* stream) {
-  return launch<__nv_bfloat16, kSwish>(x, scale, bias, nullptr, nullptr,
-                                       lengths, y, B, C, S, W, stream);
+                          int B, int C, int S, int W, int* route, void* stream) {
+  return staged_forward<__nv_bfloat16, kSwish>(x, scale, bias, nullptr, nullptr, lengths,
+                                               y, B, C, S, W, route, stream);
 }
 
-// x: (B, 2C, S) rows (h then g); y: (B, C, S).
+// x: (B, 2C, S) rows (h then g); y: (B, C, S); route as in_swish_forward.
 int in_glu_forward(const void* x, const float* scale_h, const float* bias_h,
                    const float* scale_g, const float* bias_g,
                    const int* lengths, void* y, int B, int C, int S, int W,
-                   void* stream) {
-  return launch<float, kGlu>(x, scale_h, bias_h, scale_g, bias_g, lengths, y,
-                             B, C, S, W, stream);
+                   int* route, void* stream) {
+  return staged_forward<float, kGlu>(x, scale_h, bias_h, scale_g, bias_g, lengths, y, B, C,
+                                     S, W, route, stream);
 }
 
 int in_glu_forward_bf16(const void* x, const float* scale_h,
                         const float* bias_h, const float* scale_g,
                         const float* bias_g, const int* lengths, void* y,
-                        int B, int C, int S, int W, void* stream) {
-  return launch<__nv_bfloat16, kGlu>(x, scale_h, bias_h, scale_g, bias_g,
-                                     lengths, y, B, C, S, W, stream);
+                        int B, int C, int S, int W, int* route, void* stream) {
+  return staged_forward<__nv_bfloat16, kGlu>(x, scale_h, bias_h, scale_g, bias_g, lengths,
+                                             y, B, C, S, W, route, stream);
 }
+
+// The most bytes a K1 or K3 block stages in shared memory: its rows (K1's
+// h and g rows), each run from its first 16-byte boundary to the one after
+// its end. A longer row streams from device memory.
+int in_gate_smem_limit(void) { return smem_limit(); }
 
 const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -6,9 +6,11 @@ file does not use):
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
-Shapes cover both launch modes of csrc/in_gate.cu (a warp per row of up to
-1024 values, a block per longer row), batches above 1, and lengths that are
-full, partial, odd, two frames and zero. Tolerance atol = rtol = 1e-5 (f32,
+Shapes cover every launch mode of csrc/in_gate.cu (K2: a warp per row of up
+to 1024 values, a block per longer row; K1 and K3: rows staged in shared
+memory, a group of 4-32 lanes per short row and a block per longer one, or
+streamed from device memory past a block's shared memory), batches above 1,
+and lengths that are full, partial, odd, two frames and zero. Tolerance atol = rtol = 1e-5 (f32,
 only the order of the sums differs). A row with one valid frame is
 ill-conditioned and has its own test and bound. The fused backward's
 dscale and dbias are sums of n = 4HW terms per (sample, channel), summed
@@ -1139,3 +1141,136 @@ def test_nan_reaches_y_and_dx(device, dtype, shape):
     assert y[0, 0].isnan().all() and dx[0, :4].isnan().all()
     assert torch.isfinite(y[0, 1:]).all() and torch.isfinite(y[1:]).all()
     assert torch.isfinite(dx[0, 4:]).all() and torch.isfinite(dx[1:]).all()
+
+
+# ---------- K1 and K3: rows staged once in shared memory ----------
+#
+# Each launch's route, as the C entry reports it (in_gate.ROUTES): the rows
+# bulk-copied into shared memory, or each row streamed from device memory
+# where it is larger than a block's shared memory. Every site of a 32 x 128
+# step and of a 448-frame conversion takes the first. Tolerances as above:
+# TOL in f32, ONE_BF16 in bf16.
+
+ROW_KERNELS = {"in_glu": (in_gate.instance_norm_glu, in_gate.instance_norm_glu_plain, 2),
+               "in_swish": (in_gate.instance_norm_swish, in_gate.instance_norm_swish_plain, 1)}
+
+
+def _row_inputs(device, kernel, shape, dtype, seed):
+    """x of the kernel's input ``shape`` in ``dtype``, and its f32 vectors."""
+    arrays = ROW_KERNELS[kernel][2]
+    x, vecs = _inputs(device, shape, shape[1] // arrays, 2 * arrays, seed)
+    return x.to(dtype), vecs
+
+
+def _check_rows(kernel, x, vecs, lengths, route):
+    """One launch of K1 or K3 on x: its entry's count and the route taken go
+    up by one, and y is within the tolerance of the plain version."""
+    fn, plain, _ = ROW_KERNELS[kernel]
+    dtype = x.dtype
+    routes, entry = in_gate.ROUTES[kernel][dtype], in_gate.ENTRIES[kernel][dtype]
+    before, launches = dict(routes), entry.launches
+    got = fn(x, *vecs, lengths)
+    torch.cuda.synchronize()
+    assert entry.launches == launches + 1
+    assert {r: n - before[r] for r, n in routes.items()} == {
+        r: int(r == route) for r in in_gate.ROUTE_NAMES}
+    want = plain(x, *vecs, lengths)
+    assert got.dtype == want.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(TOL if dtype == torch.float32 else ONE_BF16))
+    return got
+
+
+# K1: the generator's downSample1, downSample2 and residual inputs; K3: the
+# discriminator's downSample1-3 inputs; at 32 x 128.
+ROW_SITES_32X128 = [("in_glu", (32, 512, 40, 64)), ("in_glu", (32, 512, 20, 32)),
+                    ("in_glu", (32, 1024, 32)), ("in_swish", (32, 256, 40, 64)),
+                    ("in_swish", (32, 512, 20, 32)), ("in_swish", (32, 1024, 10, 16))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", ROW_SITES_32X128)
+def test_k1_k3_at_the_32x128_sites(device, dtype, site):
+    """Each K1 and K3 site of a 32 x 128 step, bulk-copied, unmasked and
+    with lengths one frame short and of half the frames."""
+    kernel, shape = site
+    x, vecs = _row_inputs(device, kernel, shape, dtype, 40)
+    W = shape[-1]
+    lengths = torch.tensor([W - 1, W // 2] * (shape[0] // 2), dtype=torch.int32, device=device)
+    _check_rows(kernel, x, vecs, None, "bulk")
+    _check_rows(kernel, x, vecs, lengths, "bulk")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["in_glu", "in_swish"])
+@pytest.mark.parametrize("past", [0, 1])
+def test_k1_k3_rows_at_the_shared_memory_limit(device, dtype, kernel, past):
+    """A row (K1: an h row and a g row) of exactly the limit's bytes is
+    bulk-copied; one element longer (W odd, so scalar accesses) it streams
+    from device memory. Unmasked and masked."""
+    limit = in_gate.smem_limit_bytes(device)
+    arrays = ROW_KERNELS[kernel][2]
+    esize = torch.finfo(dtype).bits // 8
+    S = limit // (arrays * esize)
+    assert arrays * S * esize == limit
+    x, vecs = _row_inputs(device, kernel, (2, arrays, S + past), dtype, 41)
+    lengths = torch.tensor([S + past - 3, S // 2], dtype=torch.int32, device=device)
+    route = "stream" if past else "bulk"
+    _check_rows(kernel, x, vecs, None, route)
+    _check_rows(kernel, x, vecs, lengths, route)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["in_glu", "in_swish"])
+@pytest.mark.parametrize("shape", [(2, 512, 20, 16), (3, 24, 5, 9), (2, 1024, 16)])
+def test_k1_k3_aligned_row_beside_a_misaligned_row(device, dtype, kernel, shape):
+    """The same values from an aligned tensor and from one whose start is 4
+    bytes off (its runs bulk-copied between their 16-byte boundaries, the
+    head and tail by the block's threads, scalar accesses): each against
+    the plain version, and bit for bit against each other."""
+    x, vecs = _row_inputs(device, kernel, shape, dtype, 42)
+    shift = 4 // x.element_size()
+    buf = torch.empty(x.numel() + shift, device=device, dtype=dtype)
+    off = buf[shift:].view(shape)
+    off.copy_(x)
+    W = shape[-1]
+    lengths = torch.tensor([W - 1, W // 2 + 1, 0][:shape[0]], dtype=torch.int32, device=device)
+    for lens in (None, lengths):
+        y_aligned = _check_rows(kernel, x, vecs, lens, "bulk")
+        y_off = _check_rows(kernel, off, vecs, lens, "bulk")
+        assert torch.equal(y_aligned, y_off)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", [((2, 512, 40, 224), (216, 150)),
+                                  ((2, 512, 20, 112), (108, 75)),
+                                  ((2, 1024, 112), (108, 75))])
+def test_k1_masked_conversion_sites(device, dtype, site):
+    """K1's downSample1, downSample2 and residual inputs of a 448-frame
+    conversion bucket, lengths of 431 valid frames beside a shorter one:
+    bulk-copied, zeros past each sample's frames."""
+    shape, lens = site
+    x, vecs = _row_inputs(device, "in_glu", shape, dtype, 43)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    y = _check_rows("in_glu", x, vecs, lengths, "bulk")
+    assert not y[0, ..., lens[0]:].any() and not y[1, ..., lens[1]:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["in_glu", "in_swish"])
+@pytest.mark.parametrize("shape", [(2, 512, 20, 16), (2, 1024, 16), (1, 8, 3, 5)])
+def test_k1_k3_nan_reaches_y(device, dtype, kernel, shape):
+    """A NaN in one row's input makes that row's outputs NaN (K1: in an h
+    row, and in another channel's g row), and no other row's."""
+    x, vecs = _row_inputs(device, kernel, shape, dtype, 44)
+    C = shape[1] // ROW_KERNELS[kernel][2]
+    x[0, 1].view(-1)[-1] = float("nan")
+    bad = [1]
+    if kernel == "in_glu":
+        x[0, C + 2].view(-1)[0] = float("nan")
+        bad.append(2)
+    y = ROW_KERNELS[kernel][0](x, *vecs)
+    torch.cuda.synchronize()
+    good = [c for c in range(C) if c not in bad]
+    assert y[0, bad].isnan().all()
+    assert torch.isfinite(y[0, good]).all() and torch.isfinite(y[1:]).all()
