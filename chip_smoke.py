@@ -16,7 +16,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 4. convert    the conversion CLI (cli/test.py main, --device cuda) on a
               full-width generator with seeded random weights, written as a
               JAX-layout checkpoint, over 5 synthetic utterances; the launch
-              counts of the run and K1's and K4's routes (every row
+              counts of the run and K1's, K2's and K4's routes (every row
               bulk-copied into shared memory), the output held against the
               CPU plain path, and the per-utterance latency.
 5. decode     the conversion CLI on the preprocessed speakers with a
@@ -42,8 +42,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               a step at a time and as graph replays (with the device-busy
               share of each, and the replays' batches held bit for bit
               against the eager sampler's), each step's launch counts and
-              K1's, K3's and K4's routes (all bulk-copied), peak memory and a
-              profiler breakdown.
+              K1's, K2's, K3's and K4's routes (all bulk-copied), peak memory
+              and a profiler breakdown.
 7. train bf16 the same CLI run as 6 with --dtype bfloat16: launches per
               replayed step on the bf16 entries of K1-K5 only (the plot's
               two conversions stay f32), losses within 0.15 relative of 6's
@@ -82,11 +82,13 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               431-frame conversion (unmasked and with the call's lengths) and
               in one training step at each size (unmasked and with lengths
               one frame short), the fused backward also against autograd, K1,
-              K3 and K4 with the route each site takes; K6
+              K2, K3 and K4 with the route each site takes; K6
               and K7 (exact) at every inverse-shuffle site of the 1 x 320
               step; the bf16 entries of K1-K7 likewise at the sites of the
               bf16 steps; K8 on the audio of every bucket the preprocess
-              phase ran; K9 on the four stage inputs of one real 431-frame
+              phase ran (its DFT on 3xTF32 mma.sync: bound at 495 / 3
+              TFLOP/s, the f32 cores' bound and the achieved TFLOP/s
+              beside it); K9 on the four stage inputs of one real 431-frame
               decode, in f32 and with the bf16 vocoder in bf16. K9's f32
               form runs its products as 3xTF32 on the tensor cores: its
               bound is the flops at 495 / 3 TFLOP/s (the f32 cores' 67
@@ -155,8 +157,8 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12    # H100 SXM, f32 outside the tensor cores
-# K9's f32 form takes each f32 product as three TF32 products on the tensor
-# cores (3xTF32), at 495 TFLOP/s dense TF32 (H100 SXM).
+# K8 and K9's f32 form take each f32 product as three TF32 products on the
+# tensor cores (3xTF32), at 495 TFLOP/s dense TF32 (H100 SXM).
 F32_3XTF32_FLOPS_PER_S = 495e12 / 3
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 on the tensor cores
 TOL = dict(atol=1e-5, rtol=1e-5)  # kernel vs plain, f32: reduction order only
@@ -788,8 +790,8 @@ def profile(fn, wall_s: float, what: str):
         print(f"profile: {what}: the profiler recorded no device time: not measured")
         return None
     groups = {
-        "the port's kernels": r"in_kernel|in_staged_kernel|ps_in_swish|pixel_shuffle_kernel|"
-                              r"melspec_kernel|"
+        "the port's kernels": r"in_staged_kernel|ps_in_swish|pixel_shuffle_kernel|"
+                              r"log_mel_kernel|"
                               r"resblock_(?:tc|bf16)_kernel|tail_kernel",
         "convolutions (cuDNN)": r"conv|xmma|gemm|cudnn|wgrad|dgrad|fprop|winograd|implicit",
         "Adam (foreach)": r"multi_tensor_apply|foreach",
@@ -816,11 +818,10 @@ def profile(fn, wall_s: float, what: str):
 # The audio path: preprocessing (K8) and decoding (K9)
 # ---------------------------------------------------------------------------
 
-# The kernels whose C entry reports a route (K1, K3, K4), and their route
-# counters by dtype. K2 and K5 have one route: their launches are their
-# counts.
-ROUTED = {"in_glu": in_gate.ROUTES["in_glu"], "in_swish": in_gate.ROUTES["in_swish"],
-          "ps_in_swish": ps.ROUTES}
+# The kernels whose C entry reports a route (K1, K2, K3, K4), and their
+# route counters by dtype. K5 has one route: its launches are its count.
+ROUTED = {"in_glu": in_gate.ROUTES["in_glu"], "in": in_gate.ROUTES["in"],
+          "in_swish": in_gate.ROUTES["in_swish"], "ps_in_swish": ps.ROUTES}
 
 
 def reset_counts() -> None:
@@ -833,16 +834,16 @@ def reset_counts() -> None:
 
 
 def route_counts() -> dict:
-    """K1's, K3's and K4's launches since the counts were reset by the route
-    their blocks took, those taken at all ("in_glu/bulk",
+    """K1's, K2's, K3's and K4's launches since the counts were reset by the
+    route their blocks took, those taken at all ("in_glu/bulk",
     "ps_in_swish_bf16/stream")."""
     return {f"{entry_name(k, dtype)}/{r}": n for k, by_dtype in ROUTED.items()
             for dtype, routes in by_dtype.items() for r, n in routes.items() if n}
 
 
 def bulk_routes(launches: dict) -> dict:
-    """The route counts of a run that launched ``launches``: every K1, K3
-    and K4 launch with its rows bulk-copied into shared memory."""
+    """The route counts of a run that launched ``launches``: every K1, K2,
+    K3 and K4 launch with its rows bulk-copied into shared memory."""
     return {f"{k}/bulk": n for k, n in launches.items() if base_name(k) in ROUTED and n}
 
 
@@ -1101,11 +1102,14 @@ def phase_decode(device, pre: str, ckpts: str):
 
 def measure_log_mel(audio_inputs, device):
     """K8 on the padded audio of each bucket the preprocess run saw: error
-    against the plain version, device times and the bound."""
+    against the plain version, device times and the bound (the flops at the
+    3xTF32 rate of the kernel's tensor-core products, with the f32 cores'
+    bound and the achieved TFLOP/s beside it)."""
     per_bucket = {}
     for a in audio_inputs:
         per_bucket.setdefault(tuple(a.shape), [a, 0])[1] += 1
-    r = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
+    r = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, simt_bound_ms=0.0, max_abs_err=0.0,
+             gflop=0.0)
     for shape, (a, n) in sorted(per_bucket.items()):
         a = a.to(device)
         got = melspec.log_mel_spectrogram_fused(a, pad=False)
@@ -1118,22 +1122,28 @@ def measure_log_mel(audio_inputs, device):
         T = got.shape[-1]
         flops = B * T * (2 * 2 * 1024 * 513 + 2 * 513 * 80)
         nbytes = 4 * (B * L + 2 * 1024 * 513 + 513 * 80 + B * 80 * T)
-        t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        t_ops, t_bytes = flops / F32_3XTF32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
         b_ms = 1e3 * max(t_ops, t_bytes)
+        simt_ms = 1e3 * max(flops / F32_FLOPS_PER_S, t_bytes)
         ms = device_ms(lambda: melspec.log_mel_spectrogram_fused(a, pad=False))
         plain_ms = device_ms(lambda: melspec.log_mel_spectrogram_plain(a, pad=False))
         print(f"kernels: preprocess log_mel in {str(shape):16s} ({T} frames) x{n} max_abs_err "
               f"{err:.3g} (tol {MEL_TOL:g} log10 units) ms {ms:.5f} plain_ms {plain_ms:.5f} "
               f"library_ms null bound_us {1e3 * b_ms:.3f} "
-              f"({'operations' if t_ops >= t_bytes else 'bytes'}; {flops / 1e9:.3f} GFLOP, "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'} at 3xTF32; f32-core "
+              f"bound_us {1e3 * simt_ms:.3f}; {flops / 1e9:.3f} GFLOP, "
               f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved)", flush=True)
         r["ms"] += n * ms
         r["plain_ms"] += n * plain_ms
         r["bound_ms"] += n * b_ms
+        r["simt_bound_ms"] += n * simt_ms
+        r["gflop"] += n * flops / 1e9
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
     print(f"kernels: preprocess log_mel sum over the run's {len(audio_inputs)} calls: ms "
-          f"{r['ms']:.5f} plain_ms {r['plain_ms']:.5f} bound_ms {r['bound_ms']:.5f}", flush=True)
+          f"{r['ms']:.5f} plain_ms {r['plain_ms']:.5f} bound_ms {r['bound_ms']:.5f} "
+          f"(3xTF32; f32-core bound_ms {r['simt_bound_ms']:.5f}); {r['gflop']:.3f} GFLOP, "
+          f"{r['gflop'] / r['ms']:.2f} TFLOP/s achieved", flush=True)
     return r
 
 
@@ -2038,9 +2048,9 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "ms_32x128": step32[k]["ms"], "bound_ms_32x128": step32[k]["bound_ms"]})
         if base_name(k) in ROUTED:
-            # K1's, K3's and K4's launches by route in one eager step at
-            # each size and (K1, K4) in one 431-frame conversion: all
-            # bulk-copied (K2 and K5 have one route).
+            # K1's, K2's, K3's and K4's launches by route in one eager step
+            # at each size and (K1, K2, K4) in one 431-frame conversion: all
+            # bulk-copied (K5 has one route).
             kernels[-1].update({
                 f"routes_per_step{size}": {r: n for r, n in per.items()
                                            if r.startswith(f"{k}/")}

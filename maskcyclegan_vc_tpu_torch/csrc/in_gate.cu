@@ -32,12 +32,9 @@
 // element. Every row goes to one thread group, so the statistics need no
 // second launch and no atomics.
 //
-// K2 (in_forward): in_kernel, a warp per row of up to kWarpRowMaxS values
-// and a block of kBlockThreads for longer rows, three passes over the row
-// (sum, centred squares, normalise and write), each element a scalar load;
-// the second and third passes read the row again, from L2.
-//
-// K1 (in_glu_forward) and K3 (in_swish_forward): in_staged_kernel.
+// All three entries run in_staged_kernel, which K2 (in_forward) instantiates
+// with no epilogue, K3 (in_swish_forward) with swish and K1
+// (in_glu_forward) with the gate.
 // - Stage once. A block's rows are bulk-copied into shared memory by one
 //   thread (cp.async.bulk, the TMA's 1-D form, completing on an mbarrier):
 //   consecutive channels of a sample are contiguous, so a block's rows are
@@ -64,12 +61,13 @@
 // - Statistics from shared memory: the sums, then the centred squares;
 //   K1 reduces h and g together, so a row takes two reductions, each one
 //   barrier for a whole-block row and none for a group.
-// - Epilogue with the SFU's exp and reciprocal (__expf, __fdividef) and one
-//   cvt for a bf16 pair.
-// - A row past a block's shared memory (f32 K1 rows of more than 28,928
-//   elements: a conversion bucket past about 1446 frames) takes the
-//   streaming route: a whole block, the same units read from device memory
-//   in three passes. The entry reports the route it launched.
+// - Epilogue: K2 writes the normalised value as it is; K3 and K1 use the
+//   SFU's exp and reciprocal (__expf, __fdividef). One cvt for a bf16 pair.
+// - A row past a block's shared memory takes the streaming route: a whole
+//   block, the same units read from device memory in three passes. That is
+//   an f32 K1 row of more than 28,928 elements (its h and g rows together;
+//   a conversion bucket past about 1446 frames), or an f32 K2 or K3 row of
+//   more than 57,856. The entry reports the route it launched.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,121 +77,11 @@ namespace {
 
 constexpr float kEps = 1e-5f;
 
-// ---------------------------------------------------------------------------
-// K2: in_kernel
-// ---------------------------------------------------------------------------
-
-constexpr int kBlockThreads = 512;
-constexpr int kWarpRowsPerBlock = 8;
-constexpr int kWarpRowMaxS = 1024;
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
-
-// Sum over the whole block; every thread receives it. smem holds 33 floats.
-// The trailing barrier lets the next call overwrite smem safely.
-__device__ float block_sum(float v, float* smem) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) smem[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float r = lane < (int)(blockDim.x >> 5) ? smem[lane] : 0.f;
-    r = warp_sum(r);
-    if (lane == 0) smem[32] = r;
-  }
-  __syncthreads();
-  const float total = smem[32];
-  __syncthreads();
-  return total;
-}
-
-template <bool kWarpRow>
-__device__ __forceinline__ float row_sum(float v, float* smem) {
-  return kWarpRow ? warp_sum(v) : block_sum(v, smem);
-}
-
-__device__ __forceinline__ float load(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store(float* p, size_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, size_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-
-// Offset in a row of width W of the i-th valid position, when the first L
-// columns of each of the row's H lines are valid.
-__device__ __forceinline__ int valid_offset(int i, int L, int W) {
-  const int h = i / L;
-  return h * W + (i - h * L);
-}
-
-template <typename T, bool kWarpRow>
-__global__ void in_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                          const float* __restrict__ bias, const int* __restrict__ lengths,
-                          T* __restrict__ y, int B, int C, int S, int W) {
-  __shared__ float smem[33];
-  int row, t, nt;
-  if (kWarpRow) {
-    row = blockIdx.x * kWarpRowsPerBlock + (threadIdx.x >> 5);
-    t = threadIdx.x & 31;
-    nt = 32;
-    if (row >= B * C) return;  // whole warps only: warp_sum stays full
-  } else {
-    row = blockIdx.x;
-    t = threadIdx.x;
-    nt = blockDim.x;
-  }
-  const int b = row / C, c = row - b * C;
-  const int L = lengths ? min(max(lengths[b], 0), W) : W;
-  const int n = (S / W) * L;
-  const float inv_n = 1.f / (float)max(n, 1);
-
-  const T* xr = x + (size_t)row * S;
-  T* yr = y + (size_t)row * S;
-
-  float sh = 0.f;
-  for (int i = t; i < n; i += nt) sh += load(xr, valid_offset(i, L, W));
-  const float mh = row_sum<kWarpRow>(sh, smem) * inv_n;
-
-  float qh = 0.f;
-  for (int i = t; i < n; i += nt) {
-    const float dh = load(xr, valid_offset(i, L, W)) - mh;
-    qh += dh * dh;
-  }
-  const float ah = rsqrtf(row_sum<kWarpRow>(qh, smem) * inv_n + kEps) * scale[c];
-  const float bh = bias[c] - mh * ah;
-
-  for (int s = t; s < S; s += nt) {
-    float out = 0.f;
-    if (s % W < L) out = load(xr, s) * ah + bh;
-    store(yr, s, out);
-  }
-}
-
-template <typename T>
-int launch_in(const void* x, const float* scale, const float* bias, const int* lengths,
-              void* y, int B, int C, int S, int W, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = B * C;
-  if (S <= kWarpRowMaxS) {
-    const int blocks = (rows + kWarpRowsPerBlock - 1) / kWarpRowsPerBlock;
-    in_kernel<T, true><<<blocks, 32 * kWarpRowsPerBlock, 0, st>>>(
-        static_cast<const T*>(x), scale, bias, lengths, static_cast<T*>(y), B, C, S, W);
-  } else {
-    in_kernel<T, false><<<rows, kBlockThreads, 0, st>>>(
-        static_cast<const T*>(x), scale, bias, lengths, static_cast<T*>(y), B, C, S, W);
-  }
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// K1 and K3: in_staged_kernel
-// ---------------------------------------------------------------------------
 
 constexpr int kVecBytes = 16;           // one vector access
 constexpr int kMaxThreads = 512;        // a block's threads, at most
@@ -208,8 +96,9 @@ constexpr int kGroupUnits = 4;          // units a group's thread takes, at most
 constexpr int kGroupMaxUnits = 128;     // longer rows take a whole block
 constexpr int kGroupBlockThreads = 256; // threads of a block of groups, at most
 enum Route { kBulk = 0, kStream = 1 };
-// What follows the normalisation: swish (K3) or the GLU gate (K1).
-enum Epilogue { kSwish = 1, kGlu = 2 };
+// What follows the normalisation: nothing (K2), swish (K3) or the GLU gate
+// (K1).
+enum Epilogue { kNone = 0, kSwish = 1, kGlu = 2 };
 
 template <typename T>
 struct Elem;
@@ -518,7 +407,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     for (int k = 0; k < V; ++k) {
       float z = h[k] * ah + bh;
       if constexpr (kGated) z *= sigmoid(g[k] * ag + bg);
-      else z = swish(z);
+      else if constexpr (kEpilogue == kSwish) z = swish(z);
       out[k] = full || w0 + k < L ? z : 0.f;
     }
     store_unit<kVec>(yr + off, n, out);
@@ -567,7 +456,7 @@ struct Plan {
   size_t smem;  // dynamic shared memory
 };
 
-// arrays: 2 for K1 (h and g rows), 1 for K3.
+// arrays: 2 for K1 (h and g rows), 1 for K2 and K3.
 Plan plan(const void* x, const void* y, int B, int C, int S, int W, int esize, int arrays) {
   const int V = kVecBytes / esize;
   const int nU = (S / W) * ((W + V - 1) / V);
@@ -649,22 +538,24 @@ int staged_forward(const void* x, const float* scale_h, const float* bias_h,
 extern "C" {
 
 // x, y: (B, C, S) rows of f32 (bf16 in the _bf16 entries); scale, bias:
-// (C,) f32; lengths: (B,) int32 or null. Each returns a cudaError_t.
+// (C,) f32; lengths: (B,) int32 or null; route (or null) receives the
+// route launched: 0 the rows bulk-copied into shared memory, 1 each row
+// streamed from device memory. Each returns a cudaError_t.
 int in_forward(const void* x, const float* scale, const float* bias,
                const int* lengths, void* y, int B, int C, int S, int W,
-               void* stream) {
-  return launch_in<float>(x, scale, bias, lengths, y, B, C, S, W, stream);
+               int* route, void* stream) {
+  return staged_forward<float, kNone>(x, scale, bias, nullptr, nullptr, lengths, y, B, C, S,
+                                      W, route, stream);
 }
 
 int in_forward_bf16(const void* x, const float* scale, const float* bias,
                     const int* lengths, void* y, int B, int C, int S, int W,
-                    void* stream) {
-  return launch_in<__nv_bfloat16>(x, scale, bias, lengths, y, B, C, S, W, stream);
+                    int* route, void* stream) {
+  return staged_forward<__nv_bfloat16, kNone>(x, scale, bias, nullptr, nullptr, lengths, y,
+                                              B, C, S, W, route, stream);
 }
 
-// swish(IN(x)); the same layout as in_forward. route (or null) receives the
-// route launched: 0 the rows bulk-copied into shared memory, 1 each row
-// streamed from device memory.
+// swish(IN(x)); the same layout and route as in_forward.
 int in_swish_forward(const void* x, const float* scale, const float* bias,
                      const int* lengths, void* y, int B, int C, int S, int W,
                      int* route, void* stream) {
@@ -696,9 +587,9 @@ int in_glu_forward_bf16(const void* x, const float* scale_h,
                                              y, B, C, S, W, route, stream);
 }
 
-// The most bytes a K1 or K3 block stages in shared memory: its rows (K1's
-// h and g rows), each run from its first 16-byte boundary to the one after
-// its end. A longer row streams from device memory.
+// The most bytes a block stages in shared memory: its rows (K1's h and g
+// rows), each run from its first 16-byte boundary to the one after its
+// end. A longer row streams from device memory.
 int in_gate_smem_limit(void) { return smem_limit(); }
 
 const char* kernel_error_string(int code) {

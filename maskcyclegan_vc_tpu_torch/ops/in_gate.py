@@ -21,11 +21,11 @@ zeroes the output beyond them; ``lengths=None`` is the unmasked function.
 
 Each public function launches its CUDA kernel (``csrc/in_gate.cu``) for a
 tensor on the card and runs its ``*_plain`` version for a tensor on the
-CPU, and raises for anything else. On the card each launch of K1 (the
-GLU) and K3 (swish) also counts the route its blocks took, as the C entry
-reports it (``ROUTES``): the rows staged once in shared memory by a bulk
-copy, or each row streamed from device memory where it is larger than a
-block's shared memory (``smem_limit_bytes``). Where an input requires
+CPU, and raises for anything else. On the card each launch of K2 (the
+InstanceNorm), K1 (the GLU) and K3 (swish) also counts the route its blocks
+took, as the C entry reports it (``ROUTES``): the rows staged once in shared
+memory by a bulk copy, or each row streamed from device memory where it is
+larger than a block's shared memory (``smem_limit_bytes``). Where an input requires
 grad, the unmasked function runs through a ``torch.autograd.Function``
 whose forward is that same kernel or plain version and whose backward is
 the JAX package's own (``_in_bwd``, ``_insw_bwd``, ``_inglu_bwd``: XLA
@@ -46,34 +46,33 @@ from maskcyclegan_vc_tpu_torch.ops.cuda_lib import INT, PTR, CudaKernel, load
 EPS = 1e-5
 
 DTYPES = (torch.float32, torch.bfloat16)
-_ROW_ARGS = [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR]
-_SWISH_ARGS = [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR]
+_ROW_ARGS = [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR]
 _GLU_ARGS = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR]
 IN_KERNEL = CudaKernel("in_gate", "in_forward", _ROW_ARGS)
-IN_SWISH_KERNEL = CudaKernel("in_gate", "in_swish_forward", _SWISH_ARGS)
+IN_SWISH_KERNEL = CudaKernel("in_gate", "in_swish_forward", _ROW_ARGS)
 IN_GLU_KERNEL = CudaKernel("in_gate", "in_glu_forward", _GLU_ARGS)
 # The entry of each kernel for each dtype of x.
 ENTRIES = {
     "in": {torch.float32: IN_KERNEL,
            torch.bfloat16: CudaKernel("in_gate", "in_forward_bf16", _ROW_ARGS)},
     "in_swish": {torch.float32: IN_SWISH_KERNEL,
-                 torch.bfloat16: CudaKernel("in_gate", "in_swish_forward_bf16", _SWISH_ARGS)},
+                 torch.bfloat16: CudaKernel("in_gate", "in_swish_forward_bf16", _ROW_ARGS)},
     "in_glu": {torch.float32: IN_GLU_KERNEL,
                torch.bfloat16: CudaKernel("in_gate", "in_glu_forward_bf16", _GLU_ARGS)},
 }
 
-# K1's and K3's launches by the route their blocks took, for each kernel and
-# dtype of x, as the C entry reports it: the rows bulk-copied into shared
-# memory ("bulk"), or each row read from device memory where it exceeds a
-# block's shared memory ("stream"). K2 has one design; its launches are its
-# entry's count. A caller may set a count back to 0.
+# K2's, K1's and K3's launches by the route their blocks took, for each
+# kernel and dtype of x, as the C entry reports it: the rows bulk-copied
+# into shared memory ("bulk"), or each row read from device memory where it
+# exceeds a block's shared memory ("stream"). A caller may set a count back
+# to 0.
 ROUTE_NAMES = ("bulk", "stream")
 ROUTES = {k: {dtype: dict.fromkeys(ROUTE_NAMES, 0) for dtype in DTYPES}
-          for k in ("in_swish", "in_glu")}
+          for k in ("in", "in_swish", "in_glu")}
 
 
 def smem_limit_bytes(device) -> int:
-    """The most bytes one K1 or K3 block stages in shared memory on
+    """The most bytes one K1, K2 or K3 block stages in shared memory on
     ``device``: its rows (K1's h and g rows together), each from its first
     16-byte boundary to the one after its end. A longer row streams from
     device memory."""
@@ -190,16 +189,13 @@ def _launch_rows(kernel: str, x: torch.Tensor, vecs, lengths,
     B = x.shape[0]
     y = torch.empty((B, out_channels) + tuple(x.shape[2:]), device=x.device,
                     dtype=x.dtype)
-    routed = kernel in ROUTES
     route = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         ENTRIES[kernel][x.dtype](x.data_ptr(), *(v.data_ptr() for v in vecs),
                                  _ptr(lengths), y.data_ptr(), B, out_channels,
-                                 x[0, 0].numel(), x.shape[-1],
-                                 *((ctypes.addressof(route),) if routed else ()),
+                                 x[0, 0].numel(), x.shape[-1], ctypes.addressof(route),
                                  torch.cuda.current_stream().cuda_stream)
-    if routed:
-        ROUTES[kernel][x.dtype][ROUTE_NAMES[route.value]] += 1
+    ROUTES[kernel][x.dtype][ROUTE_NAMES[route.value]] += 1
     return y
 
 

@@ -32,14 +32,45 @@ LOG_MEL_KERNEL = CudaKernel("melspec", "log_mel_forward",
                             [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, PTR])
 
 
+# The kernel's bins, padded to its 8 blocks of 68 (csrc/melspec.cu, kCluster
+# and kSliceBins).
+BLOCKS, SLICE_BINS = 8, 68
+BINS_PAD = BLOCKS * SLICE_BINS
+
+
+def _to_tf32(x: np.ndarray) -> np.ndarray:
+    """x rounded to TF32 (ties away), as the kernel's ``to_tf32``."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_pairs(x: np.ndarray) -> np.ndarray:
+    """Finite f32 x -> (..., 2) pairs (hi, lo) of TF32 values, x = hi + lo
+    to ~2^-22 of x: the split the kernel's ``split`` makes of the audio."""
+    hi = _to_tf32(x)
+    return np.stack([hi, _to_tf32(np.float32(x) - hi)], -1)
+
+
+def blocked(bases: np.ndarray) -> np.ndarray:
+    """(1024, 513) -> (8, 1024, 68, 2): bins padded with zeros to 544, block
+    r's 68 bins of every sample contiguous (the kernel copies a block's
+    rows of a chunk as one run), each value as its TF32 (hi, lo) pair."""
+    padded = np.pad(bases, ((0, 0), (0, BINS_PAD - bases.shape[1])))
+    return tf32_pairs(padded.reshape(bases.shape[0], BLOCKS, SLICE_BINS).transpose(1, 0, 2))
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_constants(device: str):
-    """(win*cos, win*sin, mel filterbank^T) on ``device``: (1024, 513),
-    (1024, 513), (513, 80) float32, as the JAX kernel's ``_windowed_bases``
-    builds them (float32 window times float32 bases)."""
+    """(win*cos, win*sin, mel filterbank^T) on ``device``: (8, 1024, 68, 2),
+    (8, 1024, 68, 2), (544, 80) float32. Bins 0..512 hold the values the JAX
+    kernel's ``_windowed_bases`` builds (float32 window times float32
+    bases), split into TF32 (hi, lo) pairs, and the filterbank's; the 31
+    bins past them are zeros. Bin 68 r + i of sample n is at [r, n, i] of
+    the bases (``blocked``)."""
     cos_b, sin_b = _dft_bases(N_FFT)
     win = hann_window_periodic()[:, None]
-    consts = (win * cos_b, win * sin_b, mel_filterbank().T)
+    consts = (blocked(win * cos_b), blocked(win * sin_b),
+              np.pad(mel_filterbank().T, ((0, BINS_PAD - cos_b.shape[1]), (0, 0))))
     return tuple(torch.from_numpy(np.ascontiguousarray(c, np.float32)).to(device)
                  for c in consts)
 

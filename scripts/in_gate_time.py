@@ -9,14 +9,15 @@ forward; with their counts per step) and of one 431-frame conversion in
 its 448-frame bucket (masked, its lengths). Inputs are seeded at the card
 tests' scales. Each site's output is held against the plain version of its
 dtype (f32: atol = rtol = 1e-5; bf16: one bf16 rounding) and its error
-printed, with the route K1's and K3's entries report (``ROUTES``, where the
-checkout's ``ops.in_gate`` counts them). Times are device times of
+printed, with the route each entry reports (``ROUTES``, where the
+checkout's ``ops.in_gate`` counts it). Times are device times of
 CUDA-graph replays of 20 calls (5 where the input passes 4 Mi elements),
 the median of ``--rounds``; a site's share is its bound over its time. The
 bound is ``chip_smoke.py``'s: each input read once and each output written
 once over 3.35 TB/s (H100 SXM), or the flops over 67 TFLOP/s, whichever is
-larger. K2 is the control of an A/B call: its design is the same in every
-checkout since the port began.
+larger. In an A/B call against a checkout that changed one of the three
+kernels, the other two are the control: their code is the same on both
+sides, so a gap in them is the call's noise.
 
 To compare two versions of the kernels, unpack each checkout into a
 directory that ``.gitignore`` lists (``git archive``), copy this script

@@ -6,10 +6,10 @@ file does not use):
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
-Shapes cover every launch mode of csrc/in_gate.cu (K2: a warp per row of up
-to 1024 values, a block per longer row; K1 and K3: rows staged in shared
-memory, a group of 4-32 lanes per short row and a block per longer one, or
-streamed from device memory past a block's shared memory), batches above 1,
+Shapes cover every launch mode of csrc/in_gate.cu (K1, K2 and K3: rows
+staged in shared memory, a group of 4-32 lanes per short row and a block
+per longer one, or streamed from device memory past a block's shared
+memory), batches above 1,
 and lengths that are full, partial, odd, two frames and zero. Tolerance atol = rtol = 1e-5 (f32,
 only the order of the sums differs). A row with one valid frame is
 ill-conditioned and has its own test and bound. The fused backward's
@@ -313,8 +313,9 @@ def test_wrappers_raise_instead_of_falling_back(device):
 # ---------- K8, the mel frontend ----------
 #
 # Tolerance 5e-5 in log10 units (1.2e-4 relative in mel power): each bin's
-# DFT sums 1024 windowed products and each mel 513 magnitudes in f32, in
-# another order than cuBLAS in the plain version. Audio is broadband noise,
+# DFT sums 1024 windowed products (3xTF32 on the tensor cores, each chunk of
+# 32 into an f32 partial) and each mel 513 magnitudes in f32, in another
+# order than cuBLAS in the plain version. Audio is broadband noise,
 # so no bin sits near the 1e-5 floor, where log10 would amplify rounding.
 MEL_TOL = dict(atol=5e-5, rtol=0)
 
@@ -335,6 +336,44 @@ def test_log_mel_kernel(device, B, L, pad):
     want = melspec.log_mel_spectrogram_plain(audio, pad=pad)
     assert got.shape == want.shape and got.shape[:2] == (B, 80)
     torch.testing.assert_close(got, want, **MEL_TOL)
+
+
+@pytest.mark.parametrize("T", [1, 7, 31, 32, 33, 192, 576, 2000])
+def test_log_mel_kernel_frames(device, T):
+    """K8 (3xTF32 mma.sync, a cluster of 8 blocks a tile of 32 frames) at
+    batch 3 and T frames of pre-padded audio, with samples past the last
+    frame: one launch a call, within MEL_TOL of the plain version, and the
+    same bits in a second run (the cluster sums its partials in rank
+    order)."""
+    from maskcyclegan_vc_tpu_torch.ops import melspec
+
+    g = torch.Generator(device=device).manual_seed(T)
+    audio = torch.randn((3, 1024 + 256 * (T - 1) + 77), device=device, generator=g) * 0.3
+    before = melspec.LOG_MEL_KERNEL.launches
+    got = melspec.log_mel_spectrogram_fused(audio, pad=False)
+    again = melspec.log_mel_spectrogram_fused(audio, pad=False)
+    torch.cuda.synchronize()
+    assert melspec.LOG_MEL_KERNEL.launches == before + 2
+    assert got.shape == (3, 80, T) and torch.equal(got, again)
+    torch.testing.assert_close(got, melspec.log_mel_spectrogram_plain(audio, pad=False),
+                               **MEL_TOL)
+
+
+def test_log_mel_kernel_nan_sample(device):
+    """A NaN sample makes every mel of the four frames that hold it NaN,
+    and no other, as in the plain version."""
+    from maskcyclegan_vc_tpu_torch.ops import melspec
+
+    g = torch.Generator(device=device).manual_seed(9)
+    audio = torch.randn((2, 1024 + 256 * 99), device=device, generator=g) * 0.3
+    audio[1, 256 * 33 + 5] = float("nan")  # frames 30-33, across a tile's edge
+    got = melspec.log_mel_spectrogram_fused(audio, pad=False)
+    want = melspec.log_mel_spectrogram_plain(audio, pad=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert got[1, :, 30:34].isnan().all() and not got[0].isnan().any()
+    ok = ~want.isnan()
+    torch.testing.assert_close(got[ok], want[ok], **MEL_TOL)
 
 
 # ---------- K9, the MelGAN stage ----------
@@ -1143,15 +1182,16 @@ def test_nan_reaches_y_and_dx(device, dtype, shape):
     assert torch.isfinite(dx[0, 4:]).all() and torch.isfinite(dx[1:]).all()
 
 
-# ---------- K1 and K3: rows staged once in shared memory ----------
+# ---------- K1, K2 and K3: rows staged once in shared memory ----------
 #
 # Each launch's route, as the C entry reports it (in_gate.ROUTES): the rows
 # bulk-copied into shared memory, or each row streamed from device memory
 # where it is larger than a block's shared memory. Every site of a 32 x 128
-# step and of a 448-frame conversion takes the first. Tolerances as above:
-# TOL in f32, ONE_BF16 in bf16.
+# step, of a 1 x 64 step and of a 448-frame conversion takes the first.
+# Tolerances as above: TOL in f32, ONE_BF16 in bf16.
 
 ROW_KERNELS = {"in_glu": (in_gate.instance_norm_glu, in_gate.instance_norm_glu_plain, 2),
+               "in": (in_gate.instance_norm, in_gate.instance_norm_plain, 1),
                "in_swish": (in_gate.instance_norm_swish, in_gate.instance_norm_swish_plain, 1)}
 
 
@@ -1163,8 +1203,9 @@ def _row_inputs(device, kernel, shape, dtype, seed):
 
 
 def _check_rows(kernel, x, vecs, lengths, route):
-    """One launch of K1 or K3 on x: its entry's count and the route taken go
-    up by one, and y is within the tolerance of the plain version."""
+    """One launch of K1, K2 or K3 on x: its entry's count and the route
+    taken go up by one, and y is within the tolerance of the plain
+    version."""
     fn, plain, _ = ROW_KERNELS[kernel]
     dtype = x.dtype
     routes, entry = in_gate.ROUTES[kernel][dtype], in_gate.ENTRIES[kernel][dtype]
@@ -1202,10 +1243,10 @@ def test_k1_k3_at_the_32x128_sites(device, dtype, site):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kernel", ["in_glu", "in_swish"])
+@pytest.mark.parametrize("kernel", ["in_glu", "in", "in_swish"])
 @pytest.mark.parametrize("past", [0, 1])
 def test_k1_k3_rows_at_the_shared_memory_limit(device, dtype, kernel, past):
-    """A row (K1: an h row and a g row) of exactly the limit's bytes is
+    """K1, K2 and K3. A row (K1: an h row and a g row) of exactly the limit's bytes is
     bulk-copied; one element longer (W odd, so scalar accesses) it streams
     from device memory. Unmasked and masked."""
     limit = in_gate.smem_limit_bytes(device)
@@ -1221,10 +1262,10 @@ def test_k1_k3_rows_at_the_shared_memory_limit(device, dtype, kernel, past):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kernel", ["in_glu", "in_swish"])
+@pytest.mark.parametrize("kernel", ["in_glu", "in", "in_swish"])
 @pytest.mark.parametrize("shape", [(2, 512, 20, 16), (3, 24, 5, 9), (2, 1024, 16)])
 def test_k1_k3_aligned_row_beside_a_misaligned_row(device, dtype, kernel, shape):
-    """The same values from an aligned tensor and from one whose start is 4
+    """K1, K2 and K3. The same values from an aligned tensor and from one whose start is 4
     bytes off (its runs bulk-copied between their 16-byte boundaries, the
     head and tail by the block's threads, scalar accesses): each against
     the plain version, and bit for bit against each other."""
@@ -1257,7 +1298,7 @@ def test_k1_masked_conversion_sites(device, dtype, site):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kernel", ["in_glu", "in_swish"])
+@pytest.mark.parametrize("kernel", ["in_glu", "in", "in_swish"])
 @pytest.mark.parametrize("shape", [(2, 512, 20, 16), (2, 1024, 16), (1, 8, 3, 5)])
 def test_k1_k3_nan_reaches_y(device, dtype, kernel, shape):
     """A NaN in one row's input makes that row's outputs NaN (K1: in an h
@@ -1274,3 +1315,38 @@ def test_k1_k3_nan_reaches_y(device, dtype, kernel, shape):
     good = [c for c in range(C) if c not in bad]
     assert y[0, bad].isnan().all()
     assert torch.isfinite(y[0, good]).all() and torch.isfinite(y[1:]).all()
+
+
+# K2's sites: the generator's 2d/1d bridge norms (7 a forward, C = 256) and
+# the 1d/2d one (1, C = 5120), at 32 x 128 (32 frames), at 1 x 64 (16
+# frames, batches 1-3) and in a 448-frame conversion bucket (112 frames).
+K2_SITES = [(32, 256, 32), (32, 5120, 32), (1, 256, 16), (2, 5120, 16), (3, 256, 16),
+            (1, 256, 112), (2, 5120, 112)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K2_SITES)
+def test_k2_main_path_sites(device, dtype, shape):
+    """K2 at every main-path shape: bulk-copied, unmasked and with lengths
+    one frame short, of half the frames and, in a batch of two or more,
+    of 0; zeros past each sample's frames."""
+    x, vecs = _row_inputs(device, "in", shape, dtype, 45)
+    W = shape[-1]
+    lens = [W - 1, W // 2, 0][:shape[0]] + [W - 1] * max(0, shape[0] - 3)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    _check_rows("in", x, vecs, None, "bulk")
+    y = _check_rows("in", x, vecs, lengths, "bulk")
+    for b, n in enumerate(lens):
+        assert not y[b, :, n:].any()
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 13), (3, 5, 3, 7), (2, 256, 31)])
+def test_k2_bf16_rows_of_odd_length(device, shape):
+    """K2 in bf16 with S odd, so every other row starts off a 16-byte
+    boundary: bulk-copied with the head and tail copied by the threads,
+    scalar accesses; unmasked and masked."""
+    x, vecs = _row_inputs(device, "in", shape, torch.bfloat16, 46)
+    W = shape[-1]
+    lengths = torch.tensor([W, W // 2 + 1, 1][:shape[0]], dtype=torch.int32, device=device)
+    _check_rows("in", x, vecs, None, "bulk")
+    _check_rows("in", x, vecs, lengths, "bulk")

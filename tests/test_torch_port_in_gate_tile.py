@@ -1,4 +1,4 @@
-"""The index maps of K1 and K3 (``csrc/in_gate.cu``, ``in_staged_kernel``), emulated on the CPU.
+"""The index maps of K1, K2 and K3 (``csrc/in_gate.cu``, ``in_staged_kernel``), emulated on the CPU.
 
 A launch's plan gives each (sample, channel) row to a group of threads: a
 row of up to ``kGroupMaxUnits`` 16-byte units to a group of 4-32 lanes, a
@@ -10,7 +10,7 @@ row past a block's shared memory streams from device memory instead. A
 thread takes units: V = 16 bytes of consecutive columns of one line of its
 row. The sums over the valid columns (w < L) leave in one group reduction
 for h and g together, then the centred squares in another, then each unit's
-outputs are written.
+outputs are written: K2's as they are, K3's through swish, K1's gated.
 
 This file mirrors those formulas in numpy, each beside the ``.cu``
 expression it copies (``FORMULAS``, checked to appear in the source
@@ -19,8 +19,9 @@ start as NaN: a load of an element the stage never wrote fails, and so does
 an output written twice or not at all. The plan is computed for an H100
 (132 SMs, 232,448 bytes of shared memory a block may opt in to); the
 vector width and the block constants are read from the ``.cu``. Each
-emulated launch is held against ``instance_norm_glu_plain`` and
-``instance_norm_swish_plain`` at the card tests' shapes and tolerances,
+emulated launch is held against ``instance_norm_glu_plain``,
+``instance_norm_plain`` and ``instance_norm_swish_plain`` at the card
+tests' shapes and tolerances,
 with odd W, S % V != 0, lengths of 0, 1 and W, row groups that end inside
 a block, and a tensor that starts off a 16-byte boundary. The card tests
 (``tests/test_torch_port_cuda.py``) hold the kernel itself.
@@ -35,6 +36,7 @@ import torch
 
 from maskcyclegan_vc_tpu_torch.ops.in_gate import (
     instance_norm_glu_plain,
+    instance_norm_plain,
     instance_norm_swish_plain,
 )
 
@@ -128,6 +130,9 @@ FORMULAS = [
     "ag = rsqrtf(q[1] * inv_n + kEps) * scale_g[c];",
     "bg = bias_g[c] - m[1] * ag;",
     "if constexpr (kGated) z *= sigmoid(g[k] * ag + bg);",
+    "else if constexpr (kEpilogue == kSwish) z = swish(z);",
+    "return staged_forward<float, kNone>(x, scale, bias, nullptr, nullptr, lengths, y, B, C, S,",
+    "return staged_forward<__nv_bfloat16, kNone>(x, scale, bias, nullptr, nullptr, lengths, y,",
     "const bool full = w0 + V <= L;",
     "out[k] = full || w0 + k < L ? z : 0.f;",
     "store_unit<kVec>(yr + off, n, out);",
@@ -368,7 +373,7 @@ def emulate(kernel, x, vecs, lengths=None, lead=0, sm_count=SM_COUNT):
                 bg = scale[3][c] - mean[1] * ag
                 gz = vals[1] * ag[:, None, None] + bg[:, None, None]
                 z = z * (np.float32(1) / (np.float32(1) + np.exp(-gz)))
-            else:
+            elif kernel == "in_swish":
                 z = z / (np.float32(1) + np.exp(-z))
         out = np.where(valid[None], z, np.float32(0))
         yr = (b * C + c) * S                     # T* yr = y + ((size_t)b * C + c) * S;
@@ -391,7 +396,8 @@ def _inputs(kernel, shape, dtype, seed):
     return x.to(dtype), vecs
 
 
-PLAIN = {"in_glu": instance_norm_glu_plain, "in_swish": instance_norm_swish_plain}
+PLAIN = {"in_glu": instance_norm_glu_plain, "in": instance_norm_plain,
+         "in_swish": instance_norm_swish_plain}
 
 # The card tests' shapes (tests/test_torch_port_cuda.py, SHAPES, as (B, C,
 # *spatial) of the output), odd W and S % V != 0 among them, a row group
@@ -408,7 +414,7 @@ def _lengths(B, W):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("kernel", ["in_glu", "in_swish"])
+@pytest.mark.parametrize("kernel", ["in_glu", "in", "in_swish"])
 def test_maps(kernel, shape, dtype):
     """Every output written once, from staged elements only, within the
     card tests' tolerance of the plain version: unmasked, with lengths of
@@ -435,7 +441,7 @@ def test_maps(kernel, shape, dtype):
             aligned = got
 
 
-@pytest.mark.parametrize("kernel", ["in_glu", "in_swish"])
+@pytest.mark.parametrize("kernel", ["in_glu", "in", "in_swish"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_streaming_route(kernel, dtype):
     """A row one element past a block's shared memory (W odd, so scalar
@@ -456,24 +462,32 @@ def test_streaming_route(kernel, dtype):
                                    **(TOL if dtype == torch.float32 else ONE_BF16))
 
 
-# The main path's K1 and K3 sites (input shapes), per step at 32 x 128 and
-# 1 x 64, and the 448-frame conversion bucket's K1 sites.
+# The main path's K1, K2 and K3 sites (input shapes), per step at 32 x 128
+# and 1 x 64 (K2 at batch 1, 2 and 3: the pair forwards), and the 448-frame
+# conversion bucket's K1 and K2 sites.
 MAIN_SITES = {
     "in_glu": [(32, 512, 40, 64), (32, 512, 20, 32), (32, 1024, 32),
                (1, 512, 40, 32), (1, 512, 20, 16), (1, 1024, 16),
                (1, 512, 40, 224), (1, 512, 20, 112), (1, 1024, 112)],
+    "in": [(32, 256, 32), (32, 5120, 32),
+           (1, 256, 16), (1, 5120, 16), (2, 256, 16), (2, 5120, 16), (3, 256, 16),
+           (3, 5120, 16),
+           (1, 256, 112), (1, 5120, 112)],
     "in_swish": [(32, 256, 40, 64), (32, 512, 20, 32), (32, 1024, 10, 16),
                  (1, 256, 40, 32), (1, 512, 20, 16), (1, 1024, 10, 8)],
 }
 
 
-@pytest.mark.parametrize("kernel", ["in_glu", "in_swish"])
+@pytest.mark.parametrize("kernel", ["in_glu", "in", "in_swish"])
 @pytest.mark.parametrize("esize", [4, 2])
 def test_main_path_sites_take_the_bulk_route(kernel, esize):
     """Every main-path site is bulk-copied with 16-byte accesses, its
     block's shared memory within what an SM holds, and at most
     kThreadsPerSM threads an SM resident; an f32 K1 row of a conversion
-    bucket past 1446 frames streams."""
+    bucket past 1446 frames streams, and a K2 row only past 57,856 f32
+    elements. K2's rows of 32 frames (32 x 128) are 8 f32 or 4 bf16 units,
+    to a group of 4 lanes; those of 16 frames (1 x 64) 4 or 2 units; a
+    448-frame conversion's rows of 112, 28 or 14 units."""
     A = 2 if kernel == "in_glu" else 1
     for shape in MAIN_SITES[kernel]:
         B, C, W = shape[0], shape[1] // A, shape[-1]
@@ -482,10 +496,39 @@ def test_main_path_sites_take_the_bulk_route(kernel, esize):
         assert p["route"] == "bulk" and p["vec"], (shape, p)
         assert p["threads"] % 32 == 0 and p["threads"] <= MAX_THREADS
         assert p["smem"] + BLOCK_RESERVE + STATIC_SMEM <= SMEM_PER_SM
+        if kernel == "in":
+            assert p["gt"] <= 32 and p["gt"] * GROUP_UNITS >= S * esize // VEC_BYTES
     if kernel == "in_glu":
         for frames, route in ((1440, "bulk"), (1456, "stream")):
             p = plan(0, 0, 1, 256, 40 * frames // 2, frames // 2, esize, 2)
             assert p["route"] == (route if esize == 4 else "bulk")
+    if kernel == "in":
+        limit = SMEM_LIMIT // esize
+        assert plan(0, 0, 1, 5120, limit, limit, esize, 1)["route"] == "bulk"
+        assert plan(0, 0, 1, 5120, limit + 4, limit + 4, esize, 1)["route"] == "stream"
+        if esize == 4:
+            assert limit == 57856
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 13), (1, 3, 5, 3), (3, 256, 31)])
+@pytest.mark.parametrize("lead", [0, 2, 6])
+def test_k2_bf16_rows_of_odd_length(shape, lead):
+    """K2 in bf16 with S odd: every row after the first starts off a
+    16-byte boundary, so each block's run is bulk-copied between its
+    boundaries with a head and a tail copied by the threads, and every unit
+    takes scalar accesses; the output is the plain version's within one
+    bf16 rounding, unmasked and masked, and the same bits from a tensor
+    that starts 2 or 6 bytes off a boundary."""
+    x, vecs = _inputs("in", shape, torch.bfloat16, 7)
+    assert int(np.prod(shape[2:])) % 2 == 1
+    lengths = torch.tensor(_lengths(shape[0], shape[-1]), dtype=torch.int32)
+    for lens in (None, lengths):
+        got, p = emulate("in", x, vecs, lens, lead)
+        assert p["route"] == "bulk" and not p["vec"]
+        torch.testing.assert_close(got.float(), instance_norm_plain(x, *vecs, lens).float(),
+                                   **ONE_BF16)
+        if lead:
+            assert torch.equal(got, emulate("in", x, vecs, lens, 0)[0])
 
 
 @pytest.mark.parametrize("esize", [4, 2])

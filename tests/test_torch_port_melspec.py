@@ -42,9 +42,20 @@ def test_constants_equal_jax():
         np.testing.assert_array_equal(a, b)
     wc, ws, melT = kernel_constants("cpu")
     jwc, jws = _windowed_bases()
-    np.testing.assert_array_equal(wc.numpy(), jwc.reshape(1024, 513))
-    np.testing.assert_array_equal(ws.numpy(), jws.reshape(1024, 513))
-    np.testing.assert_array_equal(melT.numpy(), jax_melspec.mel_filterbank().T)
+    assert wc.shape == ws.shape == (8, 1024, 68, 2) and melT.shape == (544, 80)
+    for pairs, want in ((wc, jwc), (ws, jws)):
+        # bin 68 r + i of sample n at [r, n, i], as TF32 (hi, lo) with
+        # hi + lo the JAX kernel's value to 2^-21
+        pairs = pairs.permute(1, 0, 2, 3).reshape(1024, 544, 2).numpy()
+        assert not (pairs.view(np.uint32) & 0x1FFF).any()
+        bits = want.reshape(1024, 513).view(np.uint32)
+        hi = ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+        np.testing.assert_array_equal(pairs[:, :513, 0], hi)  # rounded to nearest, ties away
+        np.testing.assert_allclose(pairs[:, :513].astype(np.float64).sum(-1),
+                                   want.reshape(1024, 513), rtol=2.0 ** -21, atol=1e-30)
+        assert not pairs[:, 513:].any()
+    np.testing.assert_array_equal(melT.numpy()[:513], jax_melspec.mel_filterbank().T)
+    assert not melT[513:].any()
 
 
 @pytest.mark.parametrize("seconds", [1, 2])  # 2 s: more than one 128-frame tile
