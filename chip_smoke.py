@@ -62,7 +62,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               bf16, whose bytes are half, the CLI at --num_frames 320 for one
               epoch and one 1 x 320 step: upSample2 splits (bf16 K6) and
               upSample1 takes K5, as pixel_shuffle_in_swish_backward_bytes
-              predicts.
+              predicts. Every K6 launch of the CLI runs and of the 1 x 320
+              steps takes the vector route (16-byte units).
 9. eval decode the benchmark's config 5 (bench.py:81-107): one training step
               with with_eval_fake, then the MelGAN decode of its A->B
               conversion (fake_B_eval, no denormalization) by a full-width
@@ -83,8 +84,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               in one training step at each size (unmasked and with lengths
               one frame short), the fused backward also against autograd, K1,
               K2, K3 and K4 with the route each site takes; K6
-              and K7 (exact) at every inverse-shuffle site of the 1 x 320
-              step; the bf16 entries of K1-K7 likewise at the sites of the
+              and K7 (exact, on the vector route) at every inverse-shuffle
+              site of the 1 x 320 step; the bf16 entries of K1-K7 likewise at the sites of the
               bf16 steps; K8 on the audio of every bucket the preprocess
               phase ran (its DFT on 3xTF32 mma.sync: bound at 495 / 3
               TFLOP/s, the f32 cores' bound and the achieved TFLOP/s
@@ -703,7 +704,7 @@ def phase_convert(device):
     launches = {k: KERNELS[k]["counter"].launches for k in PER_FORWARD}
     n_utt = len(UTTERANCE_FRAMES)
     want_launches = {k: PER_FORWARD[k] * n_utt for k in PER_FORWARD}
-    routes, want_routes = route_counts(), bulk_routes(want_launches)
+    routes, want_routes = route_counts(), main_routes(want_launches)
     print(f"convert: launches {launches} (expected {want_launches}); routes {routes} "
           f"(expected {want_routes})", flush=True)
     if launches != want_launches or routes != want_routes:
@@ -758,7 +759,7 @@ def phase_convert(device):
     with recording_sites() as sites:
         convert(mels["VCC2SF3"][i431])
     routes = route_counts()
-    if site_counts(sites) != PER_FORWARD or routes != bulk_routes(PER_FORWARD):
+    if site_counts(sites) != PER_FORWARD or routes != main_routes(PER_FORWARD):
         raise AssertionError(f"one conversion launched {site_counts(sites)}, routes {routes}")
     print(f"convert: one {UTTERANCE_FRAMES[i431]}-frame conversion: routes {routes}", flush=True)
     return sites, routes
@@ -818,10 +819,15 @@ def profile(fn, wall_s: float, what: str):
 # The audio path: preprocessing (K8) and decoding (K9)
 # ---------------------------------------------------------------------------
 
-# The kernels whose C entry reports a route (K1, K2, K3, K4), and their
-# route counters by dtype. K5 has one route: its launches are its count.
+# The kernels whose C entry reports a route (K1, K2, K3, K4, K6, K7), and
+# their route counters by dtype. K5 has one route: its launches are its
+# count. MAIN_ROUTE: the route every main-path launch must take (K6 and
+# K7: 16-byte units, "vector"; the others: "bulk").
 ROUTED = {"in_glu": in_gate.ROUTES["in_glu"], "in": in_gate.ROUTES["in"],
-          "in_swish": in_gate.ROUTES["in_swish"], "ps_in_swish": ps.ROUTES}
+          "in_swish": in_gate.ROUTES["in_swish"], "ps_in_swish": ps.ROUTES,
+          "inv_shuffle": ps.SHUFFLE_ROUTES["inv_shuffle"],
+          "shuffle": ps.SHUFFLE_ROUTES["shuffle"]}
+MAIN_ROUTE = {"inv_shuffle": "vector", "shuffle": "vector"}
 
 
 def reset_counts() -> None:
@@ -834,17 +840,34 @@ def reset_counts() -> None:
 
 
 def route_counts() -> dict:
-    """K1's, K2's, K3's and K4's launches since the counts were reset by the
-    route their blocks took, those taken at all ("in_glu/bulk",
-    "ps_in_swish_bf16/stream")."""
+    """K1's, K2's, K3's, K4's, K6's and K7's launches since the counts were
+    reset by the route they took, those taken at all ("in_glu/bulk",
+    "ps_in_swish_bf16/stream", "inv_shuffle/vector")."""
     return {f"{entry_name(k, dtype)}/{r}": n for k, by_dtype in ROUTED.items()
             for dtype, routes in by_dtype.items() for r, n in routes.items() if n}
 
 
-def bulk_routes(launches: dict) -> dict:
+def main_routes(launches: dict) -> dict:
     """The route counts of a run that launched ``launches``: every K1, K2,
-    K3 and K4 launch with its rows bulk-copied into shared memory."""
-    return {f"{k}/bulk": n for k, n in launches.items() if base_name(k) in ROUTED and n}
+    K3 and K4 launch with its rows bulk-copied into shared memory, every K6
+    and K7 launch on 16-byte units."""
+    return {f"{k}/{MAIN_ROUTE.get(base_name(k), 'bulk')}": n for k, n in launches.items()
+            if base_name(k) in ROUTED and n}
+
+
+def check_shuffle_routes(what: str) -> dict:
+    """Every K6 and K7 launch since the counts were reset, a CUDA graph's
+    capture included (its replays repeat what it captured), took the
+    vector route. Returns the counts."""
+    shuffles = {k: n for k, n in counts().items()
+                if base_name(k) in ("inv_shuffle", "shuffle") and n}
+    routes = {r: n for r, n in route_counts().items()
+              if base_name(r.split("/")[0]) in ("inv_shuffle", "shuffle")}
+    print(f"{what}: K6/K7 launches by route {routes} (expected {main_routes(shuffles)})",
+          flush=True)
+    if not shuffles or routes != main_routes(shuffles):
+        raise AssertionError(f"{what}: a K6 or K7 launch left the vector route: {routes}")
+    return routes
 
 
 def counts() -> dict:
@@ -1556,8 +1579,8 @@ def step_timing(cfg, banks, device, batch: int, frames: int):
           f"d {float(m['d_loss']):.4f}", flush=True)
     routes = route_counts()
     print(f"train: {name} step at batch {batch} x {frames}: routes in one step {routes} "
-          f"(expected {bulk_routes(want)})", flush=True)
-    if launches != want or site_counts(sites) != launches or routes != bulk_routes(want):
+          f"(expected {main_routes(want)})", flush=True)
+    if launches != want or site_counts(sites) != launches or routes != main_routes(want):
         raise AssertionError(f"one step at batch {batch} x {frames} launched {launches}, "
                              f"recorded {site_counts(sites)}, routes {routes}")
     if not all(np.isfinite(float(v)) for v in m.values()):
@@ -1649,6 +1672,7 @@ def phase_long_crops(pre: str, device):
           f"3 and K6 3 a step); {accounting_line(acct)}", flush=True)
     if launches != want:
         raise AssertionError("the long-crop run did not launch K5 and K6 as expected")
+    check_shuffle_routes("long crops: CLI --num_frames 192")
     rows, vals = _log_losses(os.path.join(save, "long", "long.log"))
     if len(rows) != n_steps or not np.isfinite(vals).all():
         raise AssertionError("the long-crop run logged a non-finite loss")
@@ -1716,6 +1740,7 @@ def phase_long_crops_bf16(pre: str, device):
           f"{accounting_line(acct)}", flush=True)
     if launches != want:
         raise AssertionError("the bf16 long-crop run did not launch K5 and K6 as expected")
+    check_shuffle_routes("long crops bf16: CLI --num_frames 320")
     rows, vals = _log_losses(os.path.join(save, "long_bf16", "long_bf16.log"))
     if len(rows) != n_steps or not np.isfinite(vals).all():
         raise AssertionError("the bf16 long-crop run logged a non-finite loss")
@@ -1914,8 +1939,9 @@ def eval_decode_eager(pre, device, vocoder, dtype, batch: int, frames: int) -> N
 
 def measure_shuffles(sites, device):
     """K6 on every inverse-shuffle site, and K7 at the transposed shape, in
-    the site's dtype: exact against their plain versions, with times and the
-    bound (two element sizes an element, no arithmetic)."""
+    the site's dtype: exact against their plain versions, on the vector
+    route (16-byte units), with times and the bound (two element sizes an
+    element, no arithmetic)."""
     gen = torch.Generator(device=device).manual_seed(3)
     records = {}
     for site in (s for s in sites.values() if base_name(s.kernel) == "inv_shuffle"):
@@ -1925,11 +1951,16 @@ def measure_shuffles(sites, device):
             name = entry_name(name, dtype)
             spec = KERNELS[name]
             t = torch.randn(shape, device=device, generator=gen).to(dtype)
+            before = route_counts()
             got, want = spec["fn"](t), spec["plain"](t)
             torch.cuda.synchronize()
+            route = " ".join(k.split("/")[1] for k, n in route_counts().items()
+                             if n > before.get(k, 0))
             err = (got.float() - want.float()).abs().max().item()
             if not torch.equal(got, want):
                 raise AssertionError(f"{name} at {shape}: max abs err {err:.3g}, not exact")
+            if route != "vector":
+                raise AssertionError(f"{name} at {shape} took the {route} route, not vector")
             ms = device_ms(lambda: spec["fn"](t), 10)
             plain_ms = device_ms(lambda: spec["plain"](t), 10)
             lib_ms = device_ms(lambda: spec["library"](t), 10)
@@ -1938,8 +1969,9 @@ def measure_shuffles(sites, device):
             nbytes = 2 * t.element_size() * t.numel()
             b_ms = 1e3 * nbytes / HBM_BYTES_PER_S
             print(f"kernels: train 1x320/step {name:16s} in {str(shape):22s} x{site.count} "
-                  f"max_abs_err {err:.3g} (exact) ms {ms:.5f} plain_ms {plain_ms:.5f} "
-                  f"library_ms {lib_ms:.5f} bound_us {1e3 * b_ms:.3f} (bytes; "
+                  f"route {route} max_abs_err {err:.3g} (exact) ms {ms:.5f} "
+                  f"plain_ms {plain_ms:.5f} library_ms {lib_ms:.5f} "
+                  f"bound_us {1e3 * b_ms:.3f} (bytes; "
                   f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s achieved)", flush=True)
             r = records.setdefault(name, dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
                                               bound_ms=0.0, max_abs_err=0.0, bound_by="bytes",

@@ -45,7 +45,10 @@ through K6. On the CPU both routes run plain versions.
 
 ``pixel_shuffle`` (K7) and ``inverse_pixel_shuffle`` (K6) are the bare
 permutations, ``csrc/pixel_shuffle.cu``: each is the other's transpose, so
-each one's gradient is the other kernel.
+each one's gradient is the other kernel. On the card each launch counts the
+route its C entry reports (``SHUFFLE_ROUTES``): 16-byte units ("vector")
+where a row's W elements fill whole 16-byte words and both tensors start on
+a 16-byte boundary, else one element pair a thread ("pair").
 """
 
 from __future__ import annotations
@@ -66,7 +69,7 @@ from maskcyclegan_vc_tpu_torch.ops.in_gate import (
 
 _FWD_ARGS = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR]
 _BWD_ARGS = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR]
-_SHUFFLE_ARGS = [PTR, PTR, INT, INT, INT, INT, PTR]
+_SHUFFLE_ARGS = [PTR, PTR, INT, INT, INT, INT, PTR, PTR]
 PS_IN_SWISH_KERNEL = CudaKernel("ps_in_swish", "ps_in_swish_forward", _FWD_ARGS)
 PS_IN_SWISH_BWD_KERNEL = CudaKernel("ps_in_swish", "ps_in_swish_backward", _BWD_ARGS)
 SHUFFLE_KERNEL = CudaKernel("pixel_shuffle", "pixel_shuffle_forward", _SHUFFLE_ARGS)
@@ -97,6 +100,13 @@ ENTRIES = {
 # launches are its entry's count. A caller may set a count back to 0.
 ROUTE_NAMES = ("bulk", "stream")
 ROUTES = {dtype: dict.fromkeys(ROUTE_NAMES, 0) for dtype in (torch.float32, torch.bfloat16)}
+# K7's ("shuffle") and K6's ("inv_shuffle") launches by route, for each
+# dtype, as the C entry reports it (``csrc/pixel_shuffle.cu``). A caller may
+# set a count back to 0.
+SHUFFLE_ROUTE_NAMES = ("vector", "pair")
+SHUFFLE_ROUTES = {k: {dtype: dict.fromkeys(SHUFFLE_ROUTE_NAMES, 0)
+                      for dtype in (torch.float32, torch.bfloat16)}
+                  for k in ("shuffle", "inv_shuffle")}
 
 
 def smem_limit_bytes(device) -> int:
@@ -192,9 +202,12 @@ def _launch_shuffle(kernel: str, src: torch.Tensor) -> torch.Tensor:
         out = torch.empty((B, 4 * C, H, W), device=src.device, dtype=src.dtype)
     if src.data_ptr() % (2 * src.element_size()):
         raise ValueError("expected a tensor aligned to two elements")
+    route = ctypes.c_int()
     with torch.cuda.device(src.device):
         ENTRIES[kernel][src.dtype](src.data_ptr(), out.data_ptr(), B, C, H, W,
+                                   ctypes.addressof(route),
                                    torch.cuda.current_stream().cuda_stream)
+    SHUFFLE_ROUTES[kernel][src.dtype][SHUFFLE_ROUTE_NAMES[route.value]] += 1
     return out
 
 

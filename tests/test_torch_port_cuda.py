@@ -173,22 +173,80 @@ def test_backward_noncontiguous_cotangent(device):
 
 # ---------- K6 and K7, the inverse shuffle and the shuffle ----------
 
-# x shapes (B, 4C, H, W): odd and even W; the full-width upSample1 and
-# upSample2 inputs of a 1 x 320 step's batch-2 forward.
-@pytest.mark.parametrize("shape", [(2, 12, 3, 5), (1, 8, 4, 7), (3, 16, 5, 6),
-                                   (2, 1024, 20, 80), (2, 512, 40, 160), (1, 512, 40, 161)])
-def test_shuffle_kernels_exact(device, shape):
-    x, _ = _inputs(device, shape, 1, 0, 10)
+def _shuffle_inputs(device, shape, dtype, offset, seed):
+    """x (B, 4C, H, W) and y (B, C, 2H, 2W) in ``dtype``, each a contiguous
+    view ``offset`` elements into a flat buffer."""
+    g = torch.Generator(device=device).manual_seed(seed)
     B, C4, H, W = shape
-    y = torch.randn((B, C4 // 4, 2 * H, 2 * W), device=device,
-                    generator=torch.Generator(device=device).manual_seed(11))
-    before = (ps.SHUFFLE_KERNEL.launches, ps.INV_SHUFFLE_KERNEL.launches)
+    out = []
+    for shp in (shape, (B, C4 // 4, 2 * H, 2 * W)):
+        n = int(np.prod(shp))
+        buf = torch.randn(n + offset, device=device, generator=g).to(dtype)
+        out.append(buf[offset:].view(shp))
+    return out
+
+
+def _shuffle_routes():
+    return {k: {d: dict(r) for d, r in by.items()} for k, by in ps.SHUFFLE_ROUTES.items()}
+
+
+def _check_shuffles(x, y):
+    """K7 on x and K6 on y against their plain versions, bit for bit; the
+    route each launch took, as its C entry reported it."""
+    before = _shuffle_routes()
     got_y, got_x = ps.pixel_shuffle(x), ps.inverse_pixel_shuffle(y)
     torch.cuda.synchronize()
-    assert (ps.SHUFFLE_KERNEL.launches, ps.INV_SHUFFLE_KERNEL.launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert got_y.dtype == got_x.dtype == x.dtype
     assert torch.equal(got_y, ps.pixel_shuffle_plain(x))
     assert torch.equal(got_x, ps.inverse_pixel_shuffle_plain(y))
+    taken = {}
+    for k, by in ps.SHUFFLE_ROUTES.items():
+        delta = {r: n - before[k][x.dtype][r] for r, n in by[x.dtype].items()}
+        assert sum(delta.values()) == 1
+        taken[k] = next(r for r, n in delta.items() if n)
+    return taken
+
+
+def _shuffle_route(shape, esize, offset):
+    """The vector route where a row's W elements fill whole 16-byte words
+    and the base lies on a 16-byte boundary, else the pair route."""
+    return "vector" if shape[3] * esize % 16 == 0 and offset * esize % 16 == 0 else "pair"
+
+
+# (x shape (B, 4C, H, W), offset in elements): odd and even W; W x 4 bytes
+# exactly 16; the full-width upSample1 and upSample2 inputs of a 1 x 320
+# step's batch-2 forward, and the upSample2 input of a 1 x 192 step; a base
+# two elements (8 bytes) off a 16-byte boundary, which takes the pair route.
+@pytest.mark.parametrize("shape, offset", [
+    ((2, 12, 3, 5), 0), ((1, 8, 4, 7), 0), ((3, 16, 5, 6), 0), ((2, 8, 3, 4), 0),
+    ((2, 1024, 20, 80), 0), ((2, 512, 40, 160), 0), ((1, 512, 40, 161), 0),
+    ((1, 512, 40, 96), 0), ((2, 512, 40, 160), 2), ((2, 8, 3, 4), 2)])
+def test_shuffle_kernels_exact(device, shape, offset):
+    x, y = _shuffle_inputs(device, shape, torch.float32, offset, 10)
+    before = (ps.SHUFFLE_KERNEL.launches, ps.INV_SHUFFLE_KERNEL.launches)
+    route = _shuffle_route(shape, 4, offset)
+    assert _check_shuffles(x, y) == {"shuffle": route, "inv_shuffle": route}
+    assert (ps.SHUFFLE_KERNEL.launches, ps.INV_SHUFFLE_KERNEL.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_full_width_1x320_sites_take_the_vector_route(device, dtype):
+    """The split route's K6 at a 1 x 320 step's upSample1 and upSample2
+    sites (batch 2), and K7 at the same shapes: the vector route, by the
+    route counters."""
+    for shape in ((2, 1024, 20, 80), (2, 512, 40, 160)):
+        x, (s, b) = _inputs(device, shape, shape[1] // 4, 2, 27)
+        x = x.to(dtype)
+        dy = torch.randn((shape[0], shape[1] // 4, 2 * shape[2], 2 * shape[3]),
+                         device=device, generator=torch.Generator(device=device).manual_seed(28))
+        before = _shuffle_routes()
+        ps.pixel_shuffle_in_swish_backward_split(x, dy.to(dtype), s, b)
+        ps.pixel_shuffle(x)
+        torch.cuda.synchronize()
+        for k in ("inv_shuffle", "shuffle"):
+            assert {r: n - before[k][dtype][r] for r, n in ps.SHUFFLE_ROUTES[k][dtype].items()} \
+                == {"vector": 1, "pair": 0}
 
 
 def test_inverse_shuffle_gradient_is_the_shuffle(device):
@@ -763,22 +821,20 @@ def test_pixel_shuffle_in_swish_backward_kernel_bf16(device, shape):
             assert ((got - r).abs() <= _sum_bound(dz * 4.0)).all()
 
 
-@pytest.mark.parametrize("shape", [(2, 12, 3, 5), (1, 8, 4, 7), (2, 1024, 20, 80),
-                                   (2, 512, 40, 160), (1, 512, 40, 161)])
-def test_shuffle_kernels_exact_bf16(device, shape):
+# As test_shuffle_kernels_exact, with W x 2 bytes exactly 16 and a base two
+# elements (4 bytes) off a 16-byte boundary.
+@pytest.mark.parametrize("shape, offset", [
+    ((2, 12, 3, 5), 0), ((1, 8, 4, 7), 0), ((2, 8, 3, 8), 0), ((2, 8, 3, 4), 0),
+    ((2, 1024, 20, 80), 0), ((2, 512, 40, 160), 0), ((1, 512, 40, 161), 0),
+    ((1, 512, 40, 96), 0), ((2, 512, 40, 160), 2), ((2, 8, 3, 8), 2)])
+def test_shuffle_kernels_exact_bf16(device, shape, offset):
     """K7 and K6 on bf16: bit-exact, dtype kept, the bf16 entries only."""
-    x, _ = _bf16_inputs(device, shape, 1, 0, 24)
-    B, C4, H, W = shape
-    y = torch.randn((B, C4 // 4, 2 * H, 2 * W), device=device,
-                    generator=torch.Generator(device=device).manual_seed(25)).bfloat16()
+    x, y = _shuffle_inputs(device, shape, torch.bfloat16, offset, 24)
     before = _entry_launches("shuffle") + _entry_launches("inv_shuffle")
-    got_y, got_x = ps.pixel_shuffle(x), ps.inverse_pixel_shuffle(y)
-    torch.cuda.synchronize()
+    route = _shuffle_route(shape, 2, offset)
+    assert _check_shuffles(x, y) == {"shuffle": route, "inv_shuffle": route}
     assert _entry_launches("shuffle") + _entry_launches("inv_shuffle") == \
         (before[0], before[1] + 1, before[2], before[3] + 1)
-    assert got_y.dtype == got_x.dtype == torch.bfloat16
-    assert torch.equal(got_y, ps.pixel_shuffle_plain(x))
-    assert torch.equal(got_x, ps.inverse_pixel_shuffle_plain(y))
 
 
 def test_bf16_gradient_past_the_budget_takes_bf16_k6(device):
