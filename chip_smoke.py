@@ -12,7 +12,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 3. preprocess the preprocess CLI (cli/preprocess.py main, --device cuda)
               over 2 speakers x 5 synthetic wavs of 2-6 s; K8's launch
               count (one per utterance), the output held against the same
-              CLI on the CPU, and ms per utterance.
+              CLI on the CPU, and ms per utterance. Every CPU reference of
+              the script runs on one intra-op thread (main says why).
 4. convert    the conversion CLI (cli/test.py main, --device cuda) on a
               full-width generator with seeded random weights, written as a
               JAX-layout checkpoint, over 5 synthetic utterances; the launch
@@ -77,7 +78,18 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               device launches), the waveform's finiteness and range, and
               every K9 call of one recorded step+decode against its plain
               version.
-10. kernels   each kernel against its plain PyTorch version on the card, with
+10. distributed the train CLI with --distributed on a world of this one card
+              (NCCL; the script sets torchrun's environment), one epoch at
+              1 x 64 with deterministic cuDNN, f32 and bf16 gradient wires,
+              --scan_epochs 1 and 0: the plain run's launches per step, the
+              f32 wire's losses equal to the plain run's (steps 1-3 within
+              1e-5), the bf16 wire's within 1e-3, rank 0's checkpoint; bf16
+              graph replays at 1 x 64 and 32 x 128 with and without the
+              sync, in turns: ms/step, the NCCL kernels inside the replayed
+              graph as the profiler sees them (3 a step), their device ms,
+              the values and bytes on the wire; two gloo ranks sharing the
+              card (``--gloo_worker``), eager, batch 2, against one process.
+11. kernels   each kernel against its plain PyTorch version on the card, with
               its time, the plain version's, the library call's where one
               exists, and its bound: K1-K5 at every call site recorded in one
               431-frame conversion (unmasked and with the call's lengths) and
@@ -141,12 +153,15 @@ from maskcyclegan_vc_tpu_torch.models import Generator
 from maskcyclegan_vc_tpu_torch.models import melgan
 from maskcyclegan_vc_tpu_torch.obs.logger import TrainLogger, to_host
 from maskcyclegan_vc_tpu_torch.ops import cuda_lib, in_gate, melgan_stack, melspec, ps
+from maskcyclegan_vc_tpu_torch.parallel.dist import finalize, initialize
+from maskcyclegan_vc_tpu_torch.parallel.mesh import explicit_sync_fns, wire_bytes
 from maskcyclegan_vc_tpu_torch.train.graphs import StepRunner
 from maskcyclegan_vc_tpu_torch.train.schedules import ScheduleConfig
 from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, create_train_state
 from maskcyclegan_vc_tpu_torch.train.schedules import identity_lambda
 from maskcyclegan_vc_tpu_torch.train.step import (
     LOGGED_METRICS,
+    METRICS,
     as_train_step,
     make_train_step,
     make_update,
@@ -796,6 +811,7 @@ def profile(fn, wall_s: float, what: str):
                               r"resblock_(?:tc|bf16)_kernel|tail_kernel",
         "convolutions (cuDNN)": r"conv|xmma|gemm|cudnn|wgrad|dgrad|fprop|winograd|implicit",
         "Adam (foreach)": r"multi_tensor_apply|foreach",
+        "collectives (NCCL)": COLLECTIVE_KERNELS,
     }
     sums = {g: [0.0, 0] for g in groups}
     sums["other (eager IN backwards, losses, copies, elementwise)"] = [0.0, 0]
@@ -1343,7 +1359,7 @@ def phase_train(device, vocoder_ckpt: str):
           f"{rel_det.max():.3g} over the run", flush=True)
     if got.shape != ref.shape or det[0].shape != det[1].shape or rel_det[:3].max() > 1e-5:
         raise AssertionError("the graph run's losses disagree with the eager run's")
-    return launches, pre, args, got
+    return launches, pre, args, got, det
 
 
 def phase_train_bf16(device, pre: str, args: list, f32_losses: np.ndarray):
@@ -1937,6 +1953,257 @@ def eval_decode_eager(pre, device, vocoder, dtype, batch: int, frames: int) -> N
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Data parallel: --distributed at a world of one card
+# ---------------------------------------------------------------------------
+
+# NCCL's kernels: its ring and tree reductions (ncclDevKernel_*), and its
+# one-rank reduction (onerank.cu), which a premultiplied sum runs on a world
+# of one (parallel/mesh.py).
+COLLECTIVE_KERNELS = r"nccl|onerank"
+# The bf16 wire against the f32 plain run, steps 1-3 (deterministic cuDNN):
+# the first step's G losses precede every gradient (1e-5, as the f32 wire);
+# every later loss follows an update whose gradients were rounded to bf16 on
+# the wire, which moves Adam's steps only where a gradient is within rounding
+# of 0 (the port's CPU tests hold losses after an update at 1e-3).
+DIST_BF16_RTOL = 1e-3
+G_LOSSES = ("g_loss", "g_adv_loss", "g_cycle_loss", "g_identity_loss")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_env(world: int = 1, rank: int = 0, port: int = 0):
+    """torchrun's environment for one process of ``world`` on card 0, a
+    free port unless one is given; the caller's restored after."""
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port or free_port()))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def collective_time(fn, k: int):
+    """(NCCL kernels, their device ms) in ``fn``'s run, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n, us = 0, 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and re.search(COLLECTIVE_KERNELS, e.key):
+            n += e.count
+            us += getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+    return n, us / 1e3
+
+
+def phase_distributed(pre: str, device, args: list, det: list) -> None:
+    """The train CLI with --distributed on a world of this one card (NCCL,
+    torchrun's environment set here), with deterministic cuDNN, one epoch,
+    on an f32 and a bf16 gradient wire, --scan_epochs 1 and 0: launches
+    per step as the plain run's, the losses against phase_train's
+    deterministic plain runs (``det``, scan 1 and 0): f32 wire steps 1-3
+    within 1e-5, the bf16 wire within DIST_BF16_RTOL. Then, outside the
+    CLI, bf16 graph replays at 1 x 64 and 32 x 128 with and without the
+    sync, in turns: the NCCL kernels inside each replayed graph, seen by the
+    profiler (3 collectives a step: the G bucket, the D bucket, the
+    metrics), their device ms, ms/step of both. Then two gloo ranks on the
+    one card, eager, against the one-process batch-2 run."""
+    steps = TRAIN_SPEAKER_UTTERANCES
+    common = args + ["--num_epochs", "1", "--epochs_per_save", "1", "--epochs_per_plot", "100",
+                     "--distributed"]
+    want = {k: 0 for k in KERNELS}
+    want.update({k: steps * n for k, n in per_step(1, 64).items()})
+    torch.backends.cudnn.deterministic = True
+    try:
+        for wire in ("float32", "bfloat16"):
+            for scan in (1, 0):
+                name = f"dist_{wire}_{scan}"
+                with torchrun_env():
+                    reset_counts()
+                    with graph_accounting() as acct:
+                        losses = cli_losses(common + ["--name", name, "--scan_epochs", str(scan),
+                                                      "--grad_allreduce_dtype", wire])
+                        torch.cuda.synchronize()
+                    launches = run_launches(acct)
+                ref = det[0] if scan else det[1]
+                rel = np.abs(losses - ref) / np.abs(ref)
+                ckpt = os.path.join(args[args.index("--save_dir") + 1], name, "ckpts",
+                                    "00001_state.npz")
+                g_cols = [LOGGED_METRICS.index(k) for k in G_LOSSES]
+                print(f"distributed: CLI --distributed, world 1 over NCCL, {wire} wire, "
+                      f"--scan_epochs {scan}, deterministic cuDNN, {steps} steps: launches "
+                      f"{launches} (expected {want}, the plain run's per step); "
+                      f"{accounting_line(acct)}; logged losses against the plain run's: steps "
+                      f"1-3 within {rel[:3].max():.3g} relative (step 1 G losses "
+                      f"{rel[0, g_cols].max():.3g}), {rel.max():.3g} over the run; "
+                      f"checkpoint written by rank 0: {os.path.exists(ckpt)}", flush=True)
+                bound = 1e-5 if wire == "float32" else DIST_BF16_RTOL
+                if launches != want or (scan and acct["replays"] != steps - 1) \
+                        or losses.shape != ref.shape or not np.isfinite(losses).all() \
+                        or rel[:3].max() > bound or rel[0, g_cols].max() > 1e-5 \
+                        or not os.path.exists(ckpt):
+                    raise AssertionError(f"the --distributed run ({wire} wire, --scan_epochs "
+                                         f"{scan}) is not the plain run")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    for batch, frames, spans in ((1, 64, 3), (32, 128, 2)):
+        dist_replays(pre, device, batch, frames, spans)
+    dist_gloo_two_ranks(pre, args)
+
+
+def dist_replays(pre: str, device, batch: int, frames: int, spans: int) -> None:
+    """bf16 steps as CUDA-graph replays with and without the sync hooks of a
+    world of one, in turns, spans of 20 steps (2 at 32 x 128); the launches
+    per replayed step of both; the NCCL kernels in 5 replays (1 at 32 x
+    128) of the synced graph and their device ms."""
+    cfg, banks = train_setup(pre, batch, frames, device, torch.bfloat16)
+    n = 20 if batch == 1 else 2
+    with torchrun_env():
+        created = initialize("cuda")
+        try:
+            grad_sync, metric_sync = explicit_sync_fns("float32")
+            runs = {}
+            for name, sync in (("plain", {}),
+                               ("distributed", {"grad_sync": grad_sync,
+                                                "metric_sync": metric_sync})):
+                state = create_train_state(cfg, 0, device, capturable=True)
+                update = make_update(cfg, **sync)
+                runner = StepRunner(cfg, lambda step, u=update: u, *banks, 0, batch, frames, 25)
+                with graph_accounting() as acct:
+                    runner.run(state, 4)  # step 0 eager, then captured; 1-3 replayed
+                    torch.cuda.synchronize()
+                runs[name] = (state, runner, {k: v // acct["replays"]
+                                              for k, v in acct["replayed"].items() if v})
+            walls = {name: [] for name in runs}
+            for i in range(spans):
+                for name in (("plain", "distributed") if i % 2 == 0
+                             else ("distributed", "plain")):
+                    state, runner, _ = runs[name]
+                    t0 = time.perf_counter()
+                    rows = runner.run(state, n)
+                    torch.cuda.synchronize()
+                    walls[name].append(1e3 * (time.perf_counter() - t0) / n)
+                    if not bool(torch.isfinite(rows).all()):
+                        raise AssertionError(f"{name} replays at {batch} x {frames}: "
+                                             "non-finite losses")
+            state, runner, launches = runs["distributed"]
+            k = 5 if batch == 1 else 1
+            n_coll, coll_ms = collective_time(lambda: runner.run(state, k), k)
+            g, d = state.g_params(), state.d_params()
+            n_bytes = wire_bytes(g, None) + wire_bytes(d, None) + 4 * len(METRICS)
+            med = {name: float(np.median(w)) for name, w in walls.items()}
+            print(f"distributed: bf16 {batch} x {frames} as CUDA-graph replays, world 1, f32 "
+                  f"wire: with the sync {med['distributed']:.3f} ms/step (spans "
+                  f"{[round(w, 3) for w in walls['distributed']]}), without "
+                  f"{med['plain']:.3f} ms/step (spans {[round(w, 3) for w in walls['plain']]}); "
+                  f"{n_coll / k:g} NCCL kernels a replayed step (expected 3: the G bucket of "
+                  f"{sum(p.numel() for p in g)} values, the D bucket of "
+                  f"{sum(p.numel() for p in d)}, {len(METRICS)} metrics; {n_bytes} bytes on "
+                  f"the wire a step), their device time {coll_ms / k:.4f} ms a step; launches "
+                  f"per replayed step with the sync {launches} and without "
+                  f"{runs['plain'][2]}", flush=True)
+            if n_coll != 3 * k or launches != runs["plain"][2] \
+                    or launches != per_step(batch, frames, torch.bfloat16):
+                raise AssertionError(f"the synced graph at {batch} x {frames} does not hold "
+                                     "its collectives or launches other kernels")
+            profile(lambda: runner.run(state, k), med["distributed"] * k / 1e3,
+                    f"{k} replayed synced bf16 steps at {batch} x {frames}")
+        finally:
+            finalize(created)
+    del runs, state, runner
+    torch.cuda.empty_cache()
+
+
+GLOO_STEPS = TRAIN_SPEAKER_UTTERANCES // 2
+
+
+def gloo_argv(pre: str, args: list, name: str) -> list:
+    return args + ["--name", name, "--batch_size", "2", "--scan_epochs", "0",
+                   "--num_epochs", "1", "--epochs_per_save", "1", "--epochs_per_plot", "100",
+                   "--preprocessed_data_dir", pre]
+
+
+def gloo_worker(rank: int, port: int, pre: str, args: list, out: str) -> None:
+    """One of two gloo ranks sharing card 0 (``--gloo_worker``): the train
+    CLI with --distributed, eager, deterministic cuDNN; its logged losses
+    into ``out``."""
+    torch.backends.cudnn.deterministic = True
+    with torchrun_env(2, rank, port):
+        created = initialize("cuda", backend="gloo")
+        try:
+            losses = cli_losses(gloo_argv(pre, args, "gloo2") + ["--distributed"])
+        finally:
+            finalize(created)
+    np.save(out, losses)
+
+
+def dist_gloo_two_ranks(pre: str, args: list) -> None:
+    """Two gloo ranks on the one card (gloo carries CUDA tensors through the
+    host), eager, batch 2 split one row a rank, against the one-process
+    batch-2 run, both with deterministic cuDNN: the first step's G losses
+    within 1e-5, every loss of the epoch within DIST_BF16_RTOL (the two sum
+    in another order, which moves Adam only where a gradient is within
+    rounding of 0)."""
+    port = free_port()
+    outs = [os.path.join(WORK, f"gloo_rank{r}.npy") for r in range(2)]
+    logs = [os.path.join(WORK, f"gloo_rank{r}.log") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(2):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--gloo_worker", str(r), str(port),
+                 pre, json.dumps(args), outs[r]], stdout=log, stderr=subprocess.STDOUT))
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0, 0]:
+        for r in range(2):
+            with open(logs[r]) as f:
+                print(f"distributed: gloo rank {r}'s output:\n{f.read()[-4000:]}", flush=True)
+        raise AssertionError(f"the two gloo ranks exited {rcs}")
+    wall = time.perf_counter() - t0
+    two = np.load(outs[0])
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = cli_losses(gloo_argv(pre, args, "gloo1"))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    rel = np.abs(two - one) / np.abs(one)
+    g_cols = [LOGGED_METRICS.index(k) for k in G_LOSSES]
+    print(f"distributed: two gloo ranks on the one card, eager, batch 2 (a row a rank), "
+          f"{len(two)} steps in {wall:.1f} s (process start included), against one process "
+          f"at batch 2: step 1 G losses within {rel[0, g_cols].max():.3g} relative (bound "
+          f"1e-5), every loss within {rel.max():.3g} (bound {DIST_BF16_RTOL:g}); rank 1 "
+          f"logged the same losses: {bool(np.array_equal(np.load(outs[1]), two))}", flush=True)
+    if two.shape != one.shape or len(two) != GLOO_STEPS or rel[0, g_cols].max() > 1e-5 \
+            or rel.max() > DIST_BF16_RTOL or not np.array_equal(np.load(outs[1]), two):
+        raise AssertionError("two gloo ranks disagree with one process")
+
+
 def measure_shuffles(sites, device):
     """K6 on every inverse-shuffle site, and K7 at the transposed shape, in
     the site's dtype: exact against their plain versions, on the vector
@@ -1990,9 +2257,19 @@ def measure_shuffles(sites, device):
 
 
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--gloo_worker":
+        rank, port, pre, args, out = sys.argv[2:7]
+        gloo_worker(int(rank), int(port), pre, json.loads(args), out)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs a GPU", file=sys.stderr)
         return 1
+    # The CPU references (the preprocess CLI on the CPU, the CPU decode and
+    # step) run on one intra-op thread: with several, the first call of an
+    # elementwise op in a process put one thread's rows ~1e-4 relative off
+    # in 1 of 64 fresh processes (the plain frontend's sqrt; never on one
+    # thread: scripts/preprocess_flake_probe.py --first_call).
+    torch.set_num_threads(1)
     smi = nvidia_smi()
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} devices {torch.cuda.device_count()} "
@@ -2025,7 +2302,7 @@ def main() -> int:
     vocoder_ckpt, stack_launches, stage_calls = phase_decode(
         device, audio_pre, os.path.join(WORK, "ckpts"))
     took("decode")
-    launches, pre, train_args, f32_losses = phase_train(device, vocoder_ckpt)
+    launches, pre, train_args, f32_losses, det_losses = phase_train(device, vocoder_ckpt)
     took("train")
     launches.update({k: n for k, n in phase_train_bf16(device, pre, train_args, f32_losses)
                      .items() if k.endswith("_bf16")})
@@ -2052,6 +2329,8 @@ def main() -> int:
     took("long crops bf16")
     eval_launches, bf16_stage_calls = phase_eval_decode(pre, audio_pre, device, vocoder_ckpt)
     took("eval decode")
+    phase_distributed(pre, device, train_args, det_losses)
+    took("distributed")
 
     measure_sites(convert_sites, device, "convert/forward")
     step1 = measure_sites(sites1, device, "train 1x64/step")

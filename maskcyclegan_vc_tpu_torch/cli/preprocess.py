@@ -8,8 +8,12 @@ fused mel kernel on the card (its plain version on the CPU), drops
 utterances shorter than 64 frames, and writes
 ``<preprocessed_data_directory>/<id>/<id>_normalized.pickle`` and
 ``<id>_norm_stat.npz``, the files both packages' ``load_speaker`` read.
-Statistics are numpy's, over the speaker's frames (the JAX package's
-single-device path; its mesh version is not ported).
+Statistics are numpy's, over the speaker's frames; with ``--distributed``
+under torchrun and more than one process, every process computes every
+utterance's log-mel and the statistics come from all-reduced sums of each
+process's block of the speaker's frames (``parallel/stats.py``), as the
+JAX CLI takes them with collectives when it sees more than one device; rank
+0 writes the files.
 
     python -m maskcyclegan_vc_tpu_torch.cli.preprocess \\
         --data_directory vcc2018/vcc2018_training \\
@@ -41,6 +45,8 @@ from maskcyclegan_vc_tpu_torch.data.melspec import (
     num_frames,
 )
 from maskcyclegan_vc_tpu_torch.ops.melspec import log_mel_spectrogram_fused
+from maskcyclegan_vc_tpu_torch.parallel.dist import finalize, initialize, rank, world_size
+from maskcyclegan_vc_tpu_torch.parallel.stats import norm_stats_over_ranks
 from maskcyclegan_vc_tpu_torch.utils.device import resolve_device
 
 BUCKET_FRAMES = 64  # the JAX package's jit shape bucket, kept so outputs match
@@ -68,9 +74,11 @@ def make_mel_fn(device) -> Callable[[np.ndarray], np.ndarray]:
 
 
 def preprocess_speaker(data_dir: str, out_dir: str, speaker_id: str,
-                       mel_fn: Callable[[np.ndarray], np.ndarray]) -> int:
+                       mel_fn: Callable[[np.ndarray], np.ndarray], device="cpu") -> int:
     """One speaker's wavs -> its normalized pickle and stats; returns the
-    number of utterances kept."""
+    number of utterances kept. With more than one process the statistics
+    are collective, summed on ``device`` (the process group's), and only
+    rank 0 writes."""
     wavs = sorted(glob.glob(os.path.join(data_dir, speaker_id, "**/*.wav"),
                             recursive=True))
     if not wavs:
@@ -82,8 +90,12 @@ def preprocess_speaker(data_dir: str, out_dir: str, speaker_id: str,
             mels.append(mel)
     if not mels:
         raise ValueError(f"{speaker_id}: no utterance of {MIN_FRAMES} frames or more")
-    mean, std = compute_norm_stats(mels)
-    save_speaker(out_dir, speaker_id, normalize(mels, mean, std), mean, std)
+    if world_size() > 1:
+        mean, std = norm_stats_over_ranks(mels, device)
+    else:
+        mean, std = compute_norm_stats(mels)
+    if rank() == 0:
+        save_speaker(out_dir, speaker_id, normalize(mels, mean, std), mean, std)
     return len(mels)
 
 
@@ -94,16 +106,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--preprocessed_data_directory", type=str, required=True)
     p.add_argument("--speaker_ids", nargs="+", type=str, required=True)
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--distributed", action="store_true",
+                   help="join torchrun's process group: collective statistics over "
+                        "its processes (parallel/stats.py)")
     return p
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    mel_fn = make_mel_fn(resolve_device(args.device))
-    for sid in args.speaker_ids:
-        n = preprocess_speaker(args.data_directory, args.preprocessed_data_directory,
-                               sid, mel_fn)
-        print(f"{sid}: {n} utterances preprocessed")
+    created = initialize(args.device) if args.distributed else False
+    try:
+        device = resolve_device(args.device)
+        mel_fn = make_mel_fn(device)
+        for sid in args.speaker_ids:
+            n = preprocess_speaker(args.data_directory, args.preprocessed_data_directory,
+                                   sid, mel_fn, device)
+            print(f"{sid}: {n} utterances preprocessed")
+    finally:
+        finalize(created)
 
 
 if __name__ == "__main__":

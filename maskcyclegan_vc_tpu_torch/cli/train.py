@@ -24,8 +24,18 @@ f32; ``auto`` is float32, as the JAX CLI's is off a TPU. ``--precision``
 ``high``, ``tensorfloat32`` or ``default`` allows TF32 in cuDNN and cuBLAS;
 unset, ``highest`` or ``float32`` keep true f32. ``--fused_norms 0`` runs the
 norm kernels' plain PyTorch versions on the card (``auto`` and ``1``: the
-kernels). Not defined yet, so argparse rejects them: --distributed and
---grad_allreduce_dtype (data parallelism).
+kernels).
+
+``--distributed`` trains data parallel, one process per card, launched by
+torchrun (NCCL on the card, gloo with ``--device cpu``)::
+
+    torchrun --nproc_per_node 8 -m maskcyclegan_vc_tpu_torch.cli.train \
+        --distributed --batch_size 8 ... [--grad_allreduce_dtype bfloat16]
+
+Each process trains on its rows of the global ``--batch_size``, and each
+side's gradients are averaged over the processes before its update
+(``parallel/mesh.py``), on a wire of ``--grad_allreduce_dtype``; only rank
+0 writes. Without torchrun's environment the run is a single process.
 
 At plot cadence the four spectrogram panels are also decoded to audio
 (``--plot_audio auto``): by the MelGAN vocoder of ``--vocoder_ckpt``, else
@@ -40,6 +50,7 @@ import dataclasses
 import numpy as np
 
 from maskcyclegan_vc_tpu_torch.cli.test import print_options
+from maskcyclegan_vc_tpu_torch.parallel.dist import finalize, initialize
 from maskcyclegan_vc_tpu_torch.train.trainer import Trainer, TrainerArgs
 
 
@@ -103,20 +114,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused_norms", choices=["auto", "0", "1"], default=d.fused_norms,
                    help="the norm kernels (auto, 1) or their plain versions (0)")
     p.add_argument("--device", type=str, default=d.device, choices=["cuda", "cpu"])
+    p.add_argument("--distributed", action="store_true",
+                   help="join torchrun's process group (parallel/dist.py): data "
+                        "parallel over its processes, NCCL on the card, gloo on the CPU")
+    p.add_argument("--grad_allreduce_dtype", choices=["float32", "bfloat16"],
+                   default=d.grad_allreduce_dtype or "float32",
+                   help="wire dtype of the data-parallel gradient all-reduce; "
+                        "bfloat16 halves the collective bytes for bandwidth-limited "
+                        "links (parallel/mesh.explicit_sync_fns)")
     return p
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     print(print_options(args), flush=True)
-    np.random.seed(args.seed)
-    targs = TrainerArgs(**{f.name: getattr(args, f.name)
-                           for f in dataclasses.fields(TrainerArgs)})
-    targs.decay_after = int(targs.decay_after)
-    targs.stop_identity_after = int(targs.stop_identity_after)
-    targs.async_save = bool(targs.async_save)
-    targs.scan_epochs = bool(targs.scan_epochs)
-    Trainer(targs).train()
+    created = initialize(args.device) if args.distributed else False
+    try:
+        np.random.seed(args.seed)
+        targs = TrainerArgs(**{f.name: getattr(args, f.name)
+                               for f in dataclasses.fields(TrainerArgs)})
+        targs.decay_after = int(targs.decay_after)
+        targs.stop_identity_after = int(targs.stop_identity_after)
+        targs.async_save = bool(targs.async_save)
+        targs.scan_epochs = bool(targs.scan_epochs)
+        Trainer(targs).train()
+    finally:
+        finalize(created)
 
 
 if __name__ == "__main__":

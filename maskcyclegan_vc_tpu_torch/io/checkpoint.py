@@ -11,7 +11,8 @@ and ``load_train_state`` reads one that either wrote. ``meta/<name>``
 entries (seed, epoch, the speakers' normalisation statistics) sit beside
 the state. ``AsyncSaver`` writes files on a thread while training goes on;
 ``checkpoint_path``, ``latest_epoch`` and ``rotate_checkpoints`` manage an
-epoch-tagged directory.
+epoch-tagged directory. ``import_reference_checkpoints`` loads the
+reference's six ``.pth.tar`` files into a training state.
 """
 
 from __future__ import annotations
@@ -21,12 +22,16 @@ import glob
 import os
 import re
 import threading
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from maskcyclegan_vc_tpu_torch.io.jax_params import train_state_from_jax, train_state_to_jax
+from maskcyclegan_vc_tpu_torch.io.jax_params import (
+    load_pth_tar,
+    train_state_from_jax,
+    train_state_to_jax,
+)
 
 
 def _flatten(node: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -165,3 +170,25 @@ def rotate_checkpoints(ckpt_dir: str, max_ckpts: int) -> None:
         return
     for _, p in sorted(_epochs(ckpt_dir))[:-max_ckpts]:
         os.remove(p)
+
+
+# The reference's file names of each model, ``{epoch:05d}_<name>.pth.tar``.
+REFERENCE_NAMES = {"A2B": "generator_A2B", "B2A": "generator_B2A",
+                   "A": "discriminator_A", "B": "discriminator_B",
+                   "A2": "discriminator_A2", "B2": "discriminator_B2"}
+
+
+def import_reference_checkpoints(ckpt_dir: str, epoch: int, state) -> Tuple[Any, int]:
+    """Load the reference's ``{epoch:05d}_<model>.pth.tar`` files into
+    ``state`` in place: both generators and all four discriminators, the
+    dead ``downSample4`` block included; returns (state, epoch). The
+    optimizers are left as they are (torch Adam moments of the reference's
+    run are not carried: its files hold weights for conversion and for
+    comparison, as the JAX package's ``import_reference_checkpoints``
+    reads them). The files are pickles: load only trusted ones."""
+    for models in (state.g, state.d):
+        for name, model in models.items():
+            path = os.path.join(ckpt_dir, f"{epoch:05d}_{REFERENCE_NAMES[name]}.pth.tar")
+            sd, _ = load_pth_tar(path)
+            model.load_state_dict(sd, strict=True)
+    return state, epoch

@@ -9,7 +9,9 @@ scalars, hyperparameters, spectrogram images and audio clips where
 soundfile, or else a wav beside the log) is installed, and nothing of them
 where it is not. Metric values may be device tensors: they are buffered as
 they are and read in one transfer at the print boundary, so the training
-loop does not wait for the device on every step.
+loop does not wait for the device on every step. In a data-parallel run only
+rank 0 writes (``parallel.dist.rank``); every other rank's logger does
+nothing.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from maskcyclegan_vc_tpu_torch.data.audio_io import write_wav
+from maskcyclegan_vc_tpu_torch.parallel.dist import rank
 
 
 class AverageMeter:
@@ -58,11 +61,14 @@ def to_host(rows: List[Dict[str, object]]) -> List[Dict[str, float]]:
 class TrainLogger:
     def __init__(self, save_dir: str, name: str, steps_per_print: int = 100,
                  config: Optional[dict] = None, use_tensorboard: bool = True):
+        self.active = rank() == 0
         self.steps_per_print = steps_per_print
         self.meters: Dict[str, AverageMeter] = defaultdict(AverageMeter)
         self.tb = None
         self._t_iter = time.time()
         self._buffer = []  # (batch_size, {name: value}) per step
+        if not self.active:
+            return
         self.run_dir = os.path.join(save_dir, name)
         os.makedirs(self.run_dir, exist_ok=True)
         self.log_path = os.path.join(self.run_dir, f"{name}.log")
@@ -82,6 +88,8 @@ class TrainLogger:
                 self.tb.add_text(f"hparams/{k}", str(config[k]), 0)
 
     def write(self, msg: str, console: bool = True) -> None:
+        if not self.active:
+            return
         if console:
             print(msg, flush=True)
         with open(self.log_path, "a") as f:
@@ -97,6 +105,8 @@ class TrainLogger:
                  batch_size: int = 1) -> None:
         """Buffer one step's metrics; every ``steps_per_print`` steps read the
         window from the device, print its averages and write them."""
+        if not self.active:
+            return
         self._buffer.append((batch_size, metrics))
         if step % self.steps_per_print or step <= 0:
             return

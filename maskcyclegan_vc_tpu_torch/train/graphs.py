@@ -26,6 +26,15 @@ does, to free memory for the graph): once per variant and process.
 On the CPU the same function runs eagerly for every step and nothing is
 captured.
 
+Data parallel (``rows``, and an update made with ``parallel/mesh``'s sync
+hooks): every process draws the same global batch from ``step_seed(seed,
+step)`` and trains on its contiguous ``rows`` of it, as the JAX package's
+``make_shardmap_scan_epoch`` slices each device's block. The update's
+all-reduces run on the capture stream, so the graph holds them and every
+replay runs them. The eager first step runs them first, so the process
+group's communicator exists before the capture; a capture that cannot take
+a collective raises, and nothing is replayed without it.
+
 ``CudaKernel.launches`` counts host calls: a capture counts each kernel of
 the step once, though nothing runs then, and a replay counts nothing. A
 caller that wants the launches on the card counts each graph's launches at
@@ -49,14 +58,16 @@ class StepRunner:
 
     ``update_for(step)`` returns the update function (``make_update``) of
     the step's identity variant, the same object for every step of a
-    variant. The state's optimizers must be capturable on the card
+    variant. ``batch_size`` is the global batch, of which the step trains
+    on ``rows``. The state's optimizers must be capturable on the card
     (``create_train_state(..., capturable=True)``).
     """
 
     def __init__(self, cfg: TrainConfig, update_for: Callable[[int], Callable],
                  bank_a: MelBank, bank_b: MelBank, seed: int, batch_size: int,
-                 num_frames: int, max_mask_len: int):
+                 num_frames: int, max_mask_len: int, rows: slice = slice(None)):
         self.cfg = cfg
+        self.rows = rows     # this process's rows of the global batch
         self.update_for = update_for
         self.banks = (bank_a, bank_b)
         self.seed = seed
@@ -70,6 +81,7 @@ class StepRunner:
     def _body(self, state: TrainState, update, lam_id: float):
         """(batch, metrics row) of one step."""
         batch = sample_batch(self.generator, *self.banks, *self.shape)
+        batch = {k: v[self.rows] for k, v in batch.items()}
         metrics = update(state, batch, lam_id)
         return batch, torch.stack([metrics[k] for k in LOGGED_METRICS])
 

@@ -16,6 +16,10 @@ and no ``.grad`` accumulates anywhere between the two updates.
 to the host and changes no host state, so a CUDA graph can capture it
 (``train/graphs.py``). ``make_train_step`` wraps it with what a step does on
 the host: the learning rates for the step and the step count.
+
+Data parallelism (``parallel/mesh.explicit_sync_fns``) enters through two
+hooks, where the JAX step applies them: ``grad_sync`` on each side's raw
+gradients before its Adam update, ``metric_sync`` on the metrics.
 """
 
 from __future__ import annotations
@@ -161,7 +165,8 @@ def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
     opt.zero_grad(set_to_none=True)
 
 
-def make_update(cfg: TrainConfig, with_identity: bool = True, with_eval_fake: bool = False):
+def make_update(cfg: TrainConfig, with_identity: bool = True, with_eval_fake: bool = False,
+                grad_sync=None, metric_sync=None):
     """``update(state, batch, lam_id) -> metrics``: the G update, then the D
     update, at the learning rates the optimizers hold, with identity weight
     ``lam_id`` (a host float: within one variant of the trainer it is
@@ -172,23 +177,35 @@ def make_update(cfg: TrainConfig, with_identity: bool = True, with_eval_fake: bo
     ``real_A`` by the updated generator: the ``generated_B`` that the D
     update consumed, the same tensor (f32 in either compute dtype: the
     generator returns f32, as JAX's does), at no extra forward (JAX ``train/step.py:172-194, 273-275``), for an in-loop
-    vocoder decode. It is not one of ``LOGGED_METRICS``."""
+    vocoder decode. It is not one of ``LOGGED_METRICS``.
+
+    ``grad_sync(grads) -> grads`` (a sequence of one side's gradient
+    tensors) runs on each side's raw gradients before its update, and
+    ``metric_sync(metrics) -> metrics`` on the metrics (not on
+    ``fake_B_eval``, which stays this process's): JAX ``train/step.py``
+    ``grad_sync``/``metric_sync``, the data-parallel hooks."""
     g_loss_fn, d_loss_fn = make_loss_fns(cfg, with_identity)
+
+    def grads(loss, params):
+        g = torch.autograd.grad(loss, params)
+        return g if grad_sync is None else grad_sync(g)
 
     def update(state: TrainState, batch: Dict[str, torch.Tensor], lam_id: float):
         g_params = state.g_params()
         g_loss, g_aux = g_loss_fn(state.g, state.d, batch, lam_id)
-        _apply(state.g_opt, g_params, torch.autograd.grad(g_loss, g_params))
+        _apply(state.g_opt, g_params, grads(g_loss, g_params))
 
         fakes = make_fakes(cfg, state.g, batch)
         d_params = state.d_params()
         d_loss, d_aux = d_loss_fn(state.d, fakes, batch)
-        _apply(state.d_opt, d_params, torch.autograd.grad(d_loss, d_params))
+        _apply(state.d_opt, d_params, grads(d_loss, d_params))
 
         device = batch["real_A"].device
         metrics = {"g_loss": g_loss, "d_loss": d_loss,
                    "identity_lambda": torch.full((), lam_id, device=device),
                    **g_aux, **d_aux}
+        if metric_sync is not None:
+            metrics = metric_sync(metrics)
         if with_eval_fake:
             metrics["fake_B_eval"] = fakes["generated_B"]
         return {k: v.detach() for k, v in metrics.items()}
@@ -197,13 +214,14 @@ def make_update(cfg: TrainConfig, with_identity: bool = True, with_eval_fake: bo
 
 
 def make_train_step(cfg: TrainConfig, with_identity: bool = True,
-                    with_eval_fake: bool = False):
+                    with_eval_fake: bool = False, grad_sync=None, metric_sync=None):
     """``train_step(state, batch) -> (state, metrics)``; the state is
     updated in place. batch: {"real_A", "mask_A", "real_B", "mask_B"}, each
     (B, M, T). The metrics are 0-dim device tensors, and ``fake_B_eval``
-    with ``with_eval_fake`` (``make_update``): reading them is the caller's
-    choice (each read waits for the device)."""
-    return as_train_step(cfg, make_update(cfg, with_identity, with_eval_fake))
+    with ``with_eval_fake`` (``make_update``, also for the two sync hooks):
+    reading them is the caller's choice (each read waits for the device)."""
+    return as_train_step(cfg, make_update(cfg, with_identity, with_eval_fake,
+                                          grad_sync, metric_sync))
 
 
 def as_train_step(cfg: TrainConfig, update):

@@ -19,6 +19,18 @@ is float32, and the kernels on the card. ``precision`` holds for the whole
 run (``utils.device.precision_scope``) and is restored after it. The plot's
 conversions run in f32, as the JAX trainer's do.
 
+Data parallel (``cli/train.py --distributed`` under torchrun, which joins
+the process group first: ``parallel/dist.py``), as the JAX trainer builds
+its world (``train/trainer.py:155-222``): every process seeds (or loads)
+the same state, which ``parallel.mesh.replicate`` then broadcasts from rank
+0; each draws the same global batch and trains on its contiguous
+``batch_size / world`` rows, and each side's gradients and the logged
+losses are averaged over the processes (``parallel.mesh.explicit_sync_fns``,
+on a ``grad_allreduce_dtype`` wire), in either mode. A batch that the world
+does not divide raises; a batch smaller than the world runs replicated
+(every process the whole batch, no collectives), with a warning. Only rank
+0 writes checkpoints, plots and logs.
+
 At each epoch's end every step's logged losses are checked for finiteness,
 and a failing epoch's per-step values are written to the log before the run
 stops. However the loop ends, an in-flight checkpoint write is flushed and
@@ -33,6 +45,7 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from maskcyclegan_vc_tpu_torch.cli.test import make_convert_fn
 from maskcyclegan_vc_tpu_torch.data.griffin_lim import decode_mel_griffin_lim
@@ -53,10 +66,22 @@ from maskcyclegan_vc_tpu_torch.io.checkpoint import (
 from maskcyclegan_vc_tpu_torch.io.jax_params import train_state_to_jax
 from maskcyclegan_vc_tpu_torch.models.melgan import decode_mel, load_vocoder
 from maskcyclegan_vc_tpu_torch.obs.logger import TrainLogger, to_host
+from maskcyclegan_vc_tpu_torch.parallel.dist import local_batch_slice, rank, world_size
+from maskcyclegan_vc_tpu_torch.parallel.mesh import (
+    WIRE_DTYPES,
+    explicit_sync_fns,
+    replicate,
+    wire_bytes,
+)
 from maskcyclegan_vc_tpu_torch.train.graphs import StepRunner
 from maskcyclegan_vc_tpu_torch.train.schedules import ScheduleConfig
 from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, create_train_state
-from maskcyclegan_vc_tpu_torch.train.step import LOGGED_METRICS, as_train_step, make_update
+from maskcyclegan_vc_tpu_torch.train.step import (
+    LOGGED_METRICS,
+    METRICS,
+    as_train_step,
+    make_update,
+)
 from maskcyclegan_vc_tpu_torch.utils.debug import check_finite
 from maskcyclegan_vc_tpu_torch.utils.device import allows_tf32, precision_scope, resolve_device
 
@@ -115,6 +140,9 @@ class TrainerArgs:
     # "auto" or "1": the norm kernels on the card; "0": their plain versions.
     fused_norms: str = "auto"
     device: str = "cuda"
+    # Wire dtype of the data-parallel gradient all-reduce: None or "float32"
+    # (the gradients' own), "bfloat16" (half the bytes).
+    grad_allreduce_dtype: Optional[str] = None
 
 
 class Trainer:
@@ -124,6 +152,9 @@ class Trainer:
             raise ValueError(f"dtype {a.dtype!r} or fused_norms {a.fused_norms!r} "
                              f"not one of {sorted(DTYPES)}, auto/0/1")
         allows_tf32(a.precision)  # raises for an unknown precision
+        if a.grad_allreduce_dtype not in WIRE_DTYPES:
+            raise ValueError(f"grad_allreduce_dtype {a.grad_allreduce_dtype!r} not one of "
+                             f"float32, bfloat16")
         self.device = resolve_device(a.device)
         self.mels_A, self.mean_A, self.std_A = load_speaker(
             a.preprocessed_data_dir, a.speaker_A_id)
@@ -147,11 +178,6 @@ class Trainer:
 
         self.state = create_train_state(self.cfg, a.seed, self.device,
                                         capturable=a.scan_epochs and self.device.type == "cuda")
-        self._runner = None
-        if a.scan_epochs:
-            self._runner = StepRunner(self.cfg, lambda step: self.step_fn(step),
-                                      self.bank_A, self.bank_B, a.seed, a.batch_size,
-                                      a.num_frames, a.max_mask_len)
         self.start_epoch = 1
         self.ckpt_dir = os.path.join(a.save_dir, a.name, "ckpts")
         if a.continue_train:
@@ -159,18 +185,51 @@ class Trainer:
             if last is not None:
                 load_train_state(checkpoint_path(self.ckpt_dir, last), self.state)
                 self.start_epoch = last + 1
+        self._sync, self._rows = self._build_world()
+        self._runner = None
+        if a.scan_epochs:
+            self._runner = StepRunner(self.cfg, lambda step: self.step_fn(step),
+                                      self.bank_A, self.bank_B, a.seed, a.batch_size,
+                                      a.num_frames, a.max_mask_len, rows=self._rows)
 
-        self.vocoder = load_vocoder(a.vocoder_ckpt, self.device) if a.vocoder_ckpt else None
+        self.vocoder = (load_vocoder(a.vocoder_ckpt, self.device)
+                        if a.vocoder_ckpt and rank() == 0 else None)
         self.logger = TrainLogger(a.save_dir, a.name, steps_per_print=a.steps_per_print,
                                   config=dataclasses.asdict(a))
         self._saver = AsyncSaver()
+
+    def _build_world(self):
+        """(the update's sync hooks, this process's rows of the global
+        batch): data parallel where a process group exists and the world
+        divides the batch, else none and every row."""
+        a, n = self.args, world_size()
+        if a.batch_size % n and a.batch_size > n:
+            raise ValueError(f"batch_size {a.batch_size} not divisible by {n} processes")
+        if not dist.is_initialized() or a.batch_size < n:
+            if n > 1:
+                print(f"WARNING: batch_size {a.batch_size} < {n} processes — every process "
+                      "trains the whole batch (replicated, no collectives); raise "
+                      "--batch_size to a multiple of the process count to split it.",
+                      flush=True)
+            return {}, slice(None)
+        tensors, n_bytes = replicate(self.state)
+        grad_sync, metric_sync = explicit_sync_fns(a.grad_allreduce_dtype)
+        g, d = self.state.g_params(), self.state.d_params()
+        wire = a.grad_allreduce_dtype or "float32"
+        print(f"[dist] data parallel over {n} processes, {a.batch_size // n} of {a.batch_size} "
+              f"rows each; state broadcast from rank 0 ({tensors} tensors, {n_bytes} bytes); "
+              f"each step all-reduces {sum(p.numel() for p in g)} G and "
+              f"{sum(p.numel() for p in d)} D gradient values, "
+              f"{wire_bytes(g, a.grad_allreduce_dtype) + wire_bytes(d, a.grad_allreduce_dtype)}"
+              f" bytes on a {wire} wire, and {len(METRICS)} metrics", flush=True)
+        return {"grad_sync": grad_sync, "metric_sync": metric_sync}, local_batch_slice(a.batch_size)
 
     def step_fn(self, step: int):
         """The update (``make_update``) with identity terms up to the cutoff,
         without after it; one object per variant."""
         wi = step <= self._identity_cutoff
         if wi not in self._step_fns:
-            self._step_fns[wi] = make_update(self.cfg, with_identity=wi)
+            self._step_fns[wi] = make_update(self.cfg, with_identity=wi, **self._sync)
         return self._step_fns[wi]
 
     def train(self) -> None:
@@ -213,6 +272,7 @@ class Trainer:
             batch = sample_batch(step_generator(a.seed, step, self.device),
                                  self.bank_A, self.bank_B, a.batch_size,
                                  a.num_frames, a.max_mask_len)
+            batch = {k: v[self._rows] for k, v in batch.items()}
             self.state, metrics = as_train_step(self.cfg, self.step_fn(step))(self.state, batch)
             rows.append({k: metrics[k] for k in LOGGED_METRICS})
             self.logger.log_iter(step + 1, epoch, rows[-1], batch_size=a.batch_size)
@@ -234,6 +294,8 @@ class Trainer:
             raise
 
     def _save(self, epoch: int) -> None:
+        if rank() != 0:
+            return
         path = checkpoint_path(self.ckpt_dir, epoch)
         host = train_state_to_jax(self.state)  # copies off the device, synchronously
         if self.args.finite_check == "params":
@@ -256,7 +318,9 @@ class Trainer:
         the bucketed conversion path, a different utterance each time; and,
         unless ``plot_audio`` is off, the four decoded to audio, each in its
         speaker's statistics: by the vocoder where one is loaded, else by
-        Griffin-Lim at 32 iterations."""
+        Griffin-Lim at 32 iterations. Rank 0 only."""
+        if rank() != 0:
+            return
         idx = epoch // max(1, self.args.epochs_per_plot) - 1
         real_A = self.mels_A[idx % len(self.mels_A)]
         real_B = self.mels_B[idx % len(self.mels_B)]

@@ -148,7 +148,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     names = {p.relative_to(REPO).as_posix() for p in files}
     for sub in ("cli/preprocess.py", "cli/test.py", "data/melspec.py", "data/audio_io.py",
                 "data/griffin_lim.py", "eval/f0.py", "eval/mcep.py", "eval/metrics.py",
-                "models/melgan.py", "ops/melspec.py", "ops/melgan_stack.py"):
+                "models/melgan.py", "ops/melspec.py", "ops/melgan_stack.py",
+                "parallel/dist.py", "parallel/mesh.py", "parallel/stats.py",
+                "data/synth.py", "data/native.py"):
         assert f"maskcyclegan_vc_tpu_torch/{sub}" in names, sub
     for path in files:
         for mod in _imported_modules(path):

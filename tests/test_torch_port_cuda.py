@@ -696,6 +696,88 @@ def test_graph_trajectory_matches_eager(device, remat):
         assert max(errs.values()) < MOMENT_BOUND[side], max(errs.items(), key=lambda e: e[1])
 
 
+# ---------- the data-parallel step at a world of one card ----------
+
+def test_grad_sync_step_at_world_one_equals_the_plain_step(device):
+    """``parallel.mesh.explicit_sync_fns`` over an NCCL group of this one
+    card, with deterministic cuDNN: three steps a step at a time, and six as
+    CUDA-graph replays (the all-reduces captured), equal the unsynced steps
+    bit for bit (losses and Adam's first moments): the bucket's premultiplied
+    sum over one rank is x * 1.0 and the division is by 1."""
+    import socket
+
+    import torch.distributed as dist
+
+    from maskcyclegan_vc_tpu_torch.parallel.mesh import explicit_sync_fns
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", torch.cuda.current_device()))
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg, banks = _tiny_training(device)
+        grad_sync, metric_sync = explicit_sync_fns("float32")
+        syncs = {"synced": dict(grad_sync=grad_sync, metric_sync=metric_sync), "plain": {}}
+        eager, graphed = {}, {}
+        for name, sync in syncs.items():
+            state = create_train_state(cfg, 0, device)
+            step = make_train_step(cfg, True, **sync)
+            rows = []
+            for i in range(3):
+                _, m = step(state, sample_batch(step_generator(0, i, device), *banks, 1, 32, 25))
+                rows.append([m[k].item() for k in LOGGED_METRICS])
+            eager[name] = (rows, _first_moments(state, "g"), _first_moments(state, "d"))
+            state = create_train_state(cfg, 0, device, capturable=True)
+            updates = {wi: make_update(cfg, wi, **sync) for wi in (True, False)}
+            cutoff = cfg.schedule.stop_identity_after
+            runner = StepRunner(cfg, lambda s: updates[s <= cutoff], *banks, 0, 1, 32, 25)
+            rows = runner.run(state, 6).cpu().tolist()
+            assert runner.replays == 4
+            graphed[name] = (rows, _first_moments(state, "g"), _first_moments(state, "d"))
+        for runs in (eager, graphed):
+            (rows, g, d), (want_rows, want_g, want_d) = runs["synced"], runs["plain"]
+            assert rows == want_rows
+            for got, want in ((g, want_g), (d, want_d)):
+                assert got.keys() == want.keys()
+                for k in want:
+                    assert torch.equal(got[k], want[k]), k
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        dist.destroy_process_group()
+
+
+def test_bf16_wire_at_world_one_rounds_the_gradients(device):
+    """The bf16 wire over an NCCL group of this one card: the synced
+    gradients are the raw ones rounded to bf16 (one rounding, 2**-8 of each
+    value), not scaled, not zeroed."""
+    import socket
+
+    import torch.distributed as dist
+
+    from maskcyclegan_vc_tpu_torch.parallel.mesh import explicit_sync_fns
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        grad_sync, metric_sync = explicit_sync_fns("bfloat16")
+        g = torch.Generator(device=device).manual_seed(0)
+        grads = [torch.randn(s, device=device, generator=g) * 1e-3 for s in ((7, 5), (300,))]
+        got = grad_sync(grads)
+        for a, b in zip(got, grads):
+            assert a.dtype == torch.float32 and a.shape == b.shape
+            assert torch.equal(a, b.bfloat16().float())
+        m = {"g_loss": torch.tensor(3.5, device=device), "d_loss": torch.tensor(0.25, device=device)}
+        assert {k: v.item() for k, v in metric_sync(m).items()} == {"g_loss": 3.5, "d_loss": 0.25}
+    finally:
+        dist.destroy_process_group()
+
+
 # ---------- the bf16 entries ----------
 #
 # bf16 x, y, dy and dx; f32 vectors, statistics, dscale and dbias. Each bf16

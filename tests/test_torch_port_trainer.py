@@ -246,9 +246,25 @@ def test_cuda_without_a_gpu_raises(corpus, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--distributed"], ["--grad_allreduce_dtype", "float32"]])
-def test_unported_flags_are_rejected(corpus, flag):
+def test_unported_flags_are_rejected(corpus, flag, monkeypatch):
+    """The data-parallel flags are ported now (``tests/test_torch_port_parallel.py``
+    runs them over two processes): each is accepted, and without torchrun's
+    environment the run is the plain single-process run, bit for bit on the
+    CPU. What is still rejected is a wire dtype the flag does not offer."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    name = "flags" + "".join(flag).replace("-", "_")
+    train_main(_args(corpus, name, "--num_epochs", "1") + flag)
+    train_main(_args(corpus, name + "_plain", "--num_epochs", "1"))
+    ckpts = corpus / "results"
+    with np.load(ckpts / name / "ckpts" / "00001_state.npz") as got, \
+            np.load(ckpts / (name + "_plain") / "ckpts" / "00001_state.npz") as want:
+        assert got.files == want.files
+        for k in want.files:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     with pytest.raises(SystemExit):
-        train_main(_args(corpus, "flags", "--num_epochs", "1") + flag)
+        train_main(_args(corpus, "flags", "--num_epochs", "1")
+                   + ["--grad_allreduce_dtype", "float16"])
 
 
 @pytest.mark.parametrize("scan", [False, True])
