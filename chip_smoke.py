@@ -89,7 +89,27 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               graph as the profiler sees them (3 a step), their device ms,
               the values and bytes on the wire; two gloo ranks sharing the
               card (``--gloo_worker``), eager, batch 2, against one process.
-11. kernels   each kernel against its plain PyTorch version on the card, with
+11. obs       obs/profiler.py and utils/debug.nan_debug_mode on the card:
+              profiler.trace around 3 f32 1 x 64 steps of the published
+              model, a step at a time (the trace's device events, K1-K5 by
+              their kernels' names against the launch counts, a cuDNN
+              convolution); profiler.timed_steps over 20 chained steps beside
+              the step timing's median; one f32 and one bf16 step through the
+              trainer under nan_debug_mode with --scan_epochs 1 (a step at a
+              time inside the mode; every kernel launch's output checked);
+              the mode's cost on a step; a K2 row of 3e38 (finite) whose
+              overflowed statistics make NaN, named after the kernel's entry
+              (in_forward), the plain version making NaN from it too; the
+              norm of zeros, whose NaN is made in the CUDA backward.
+12. pairwise  cli/launch_pairwise.py, benchmarks/pairwise_run.py's path with
+              the port's modules: 3 synthetic speakers of 4 utterances
+              (data/synth.py), preprocessed on the card (12 K8 launches);
+              --dry_run for hosts 0 and 1 of 2 (disjoint, together the 3
+              pairs); the launcher for host 0 of 1, one train CLI process a
+              pair at the published width, 1 epoch each, with each job's wall
+              time; each pair's checkpoint converted by the conversion CLI on
+              the card (finite, of the input's shape, K1, K2 and K4 launched).
+13. kernels   each kernel against its plain PyTorch version on the card, with
               its time, the plain version's, the library call's where one
               exists, and its bound: K1-K5 at every call site recorded in one
               431-frame conversion (unmasked and with the call's lengths) and
@@ -126,11 +146,13 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from maskcyclegan_vc_tpu_torch.cli import launch_pairwise
 from maskcyclegan_vc_tpu_torch.cli import preprocess as preprocess_cli
 from maskcyclegan_vc_tpu_torch.cli.test import main as convert_main
 from maskcyclegan_vc_tpu_torch.cli.test import make_convert_fn
@@ -143,6 +165,7 @@ from maskcyclegan_vc_tpu_torch.data.dataset import (
     save_speaker,
     step_generator,
 )
+from maskcyclegan_vc_tpu_torch.data.synth import DEFAULT_SPEAKERS, make_corpus
 from maskcyclegan_vc_tpu_torch.io.checkpoint import save_checkpoint
 from maskcyclegan_vc_tpu_torch.io.jax_params import (
     generator_params_to_jax,
@@ -151,6 +174,7 @@ from maskcyclegan_vc_tpu_torch.io.jax_params import (
 )
 from maskcyclegan_vc_tpu_torch.models import Generator
 from maskcyclegan_vc_tpu_torch.models import melgan
+from maskcyclegan_vc_tpu_torch.obs import profiler
 from maskcyclegan_vc_tpu_torch.obs.logger import TrainLogger, to_host
 from maskcyclegan_vc_tpu_torch.ops import cuda_lib, in_gate, melgan_stack, melspec, ps
 from maskcyclegan_vc_tpu_torch.parallel.dist import finalize, initialize
@@ -166,6 +190,8 @@ from maskcyclegan_vc_tpu_torch.train.step import (
     make_train_step,
     make_update,
 )
+from maskcyclegan_vc_tpu_torch.train.trainer import Trainer, TrainerArgs
+from maskcyclegan_vc_tpu_torch.utils import debug
 from maskcyclegan_vc_tpu_torch.utils.device import precision_scope, resolve_device
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -780,6 +806,10 @@ def phase_convert(device):
     return sites, routes
 
 
+# cuDNN's and cuBLAS's convolution and GEMM kernels, by name.
+CONV_KERNELS = r"conv|xmma|gemm|cudnn|wgrad|dgrad|fprop|winograd|implicit"
+
+
 def profile(fn, wall_s: float, what: str):
     """Where one call's time goes: device time by kernel from torch.profiler,
     grouped, against the unprofiled wall time. Returns the device-busy ms,
@@ -806,10 +836,8 @@ def profile(fn, wall_s: float, what: str):
         print(f"profile: {what}: the profiler recorded no device time: not measured")
         return None
     groups = {
-        "the port's kernels": r"in_staged_kernel|ps_in_swish|pixel_shuffle_kernel|"
-                              r"log_mel_kernel|"
-                              r"resblock_(?:tc|bf16)_kernel|tail_kernel",
-        "convolutions (cuDNN)": r"conv|xmma|gemm|cudnn|wgrad|dgrad|fprop|winograd|implicit",
+        "the port's kernels": "|".join(profiler.KERNEL_NAMES.values()),
+        "convolutions (cuDNN)": CONV_KERNELS,
         "Adam (foreach)": r"multi_tensor_apply|foreach",
         "collectives (NCCL)": COLLECTIVE_KERNELS,
     }
@@ -1562,6 +1590,11 @@ def phase_step_timing(pre: str, device, batch: int, frames: int, graph_spans: in
     return launches, sites
 
 
+# The median ms/step of each config a step at a time: {(config_name, batch,
+# frames): ms}, as step_timing measured it.
+STEP_MS = {}
+
+
 def step_timing(cfg, banks, device, batch: int, frames: int):
     warm, timed = (5, 20) if batch == 1 else (2, 5)
     name = config_name(cfg)
@@ -1578,6 +1611,7 @@ def step_timing(cfg, banks, device, batch: int, frames: int):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     ms = 1e3 * float(np.median(times[warm:]))
+    STEP_MS[(name, batch, frames)] = ms
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     reset_counts()
     with recording_sites() as sites:
@@ -2204,6 +2238,253 @@ def dist_gloo_two_ranks(pre: str, args: list) -> None:
         raise AssertionError("two gloo ranks disagree with one process")
 
 
+# ---------------------------------------------------------------------------
+# obs: the profiler's trace and step timer, and the NaN localizer, on the card
+# ---------------------------------------------------------------------------
+
+DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
+# A K2 row of this value overflows the f32 sum of its statistics: the mean
+# is inf, the row's output NaN, in the kernel and its plain version alike.
+OVERFLOW = 3e38
+
+
+def trace_counts(log_dir: str):
+    """(device events, {kernel: launches} by profiler.KERNEL_NAMES, cuDNN/cuBLAS
+    kernels, the kernel names) of the one trace written under log_dir."""
+    (path,) = [os.path.join(log_dir, f) for f in os.listdir(log_dir)
+               if f.endswith(".pt.trace.json")]
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") in DEVICE_EVENTS]
+    names = [e["name"] for e in device if e["cat"] == "kernel"]
+    per = {k: sum(bool(re.search(p, n)) for n in names) for k, p in profiler.KERNEL_NAMES.items()}
+    convs = sum(bool(re.search(CONV_KERNELS, n)) for n in names)
+    return len(device), {k: n for k, n in per.items() if n}, convs, names
+
+
+def phase_obs(pre: str, device) -> None:
+    """(a) obs.profiler.trace around 3 f32 1 x 64 steps, a step at a time:
+    the trace's device events, its kernels by name against the launch
+    counts, a cuDNN convolution; (b) obs.profiler.timed_steps over 20 chained
+    steps beside phase_step_timing's median; (c) utils.debug.nan_debug_mode:
+    one f32 and one bf16 step through the trainer with --scan_epochs 1 (a
+    step at a time inside the mode), every launch's output checked; the
+    mode's cost on a step; a K2 launch's own NaN named after its entry; a
+    NaN made in a CUDA backward."""
+    cfg, banks = train_setup(pre, 1, 64, device)
+    state = create_train_state(cfg, 0, device)
+    step = make_train_step(cfg)
+    batches = [sample_batch(step_generator(0, i, device), *banks, 1, 64, 25) for i in range(24)]
+    state, _ = step(state, batches[0])  # warm-up: cuDNN's algorithm choice, kernel loads
+    torch.cuda.synchronize()
+
+    log_dir = os.path.join(WORK, "trace")
+    reset_counts()
+    with profiler.trace(log_dir):
+        for b in batches[1:4]:
+            state, m = step(state, b)
+    launched = {k: n for k, n in counts().items() if n}
+    n_device, per, convs, names = trace_counts(log_dir)
+    want = {k: 3 * n for k, n in per_step(1, 64).items()}
+    print(f"obs: trace of 3 f32 1 x 64 steps: {n_device} device events, {len(names)} kernels; "
+          f"the port's kernels by name {per} (launched {launched}, expected {want}); "
+          f"cuDNN/cuBLAS kernels {convs}", flush=True)
+    if n_device == 0 or launched != want or convs == 0 or per != launched:
+        unnamed = sorted({n[:120] for n in names if "staged" in n or "ps_in" in n})
+        raise AssertionError(f"the trace does not name the step's kernels: {unnamed[:8]}")
+
+    state, per_s = profiler.timed_steps(step, state, batches[4:24])
+    eager = STEP_MS.get(("f32", 1, 64))
+    print(f"obs: timed_steps over 20 chained f32 1 x 64 steps: {1e3 * per_s:.3f} ms/step "
+          f"(one float() of the smallest key's loss at the end); the step timing's median, "
+          f"a step at a time: {eager:.3f} ms/step", flush=True)
+
+    # The mode's cost: 3 steps outside it, 3 inside, each ending in a synchronize.
+    walls = {}
+    for inside in (False, True):
+        times = []
+        for b in batches[4:7]:
+            t0 = time.perf_counter()
+            with debug.nan_debug_mode() if inside else contextlib.nullcontext():
+                state, m = step(state, b)
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        walls[inside] = 1e3 * float(np.median(times))
+    print(f"obs: nan_debug_mode on an f32 1 x 64 step: {walls[True]:.3f} ms against "
+          f"{walls[False]:.3f} outside it (median of 3, host clock ending in a synchronize)",
+          flush=True)
+    del state, batches
+    torch.cuda.empty_cache()
+
+    # One step of each dtype through the trainer inside the mode.
+    one = os.path.join(WORK, "nan_pre")
+    for sid in ("VCC2SF3", "VCC2TF1"):
+        mels, mean, std = load_speaker(pre, sid)
+        save_speaker(one, sid, mels[:1], mean, std)
+    for dtype in ("float32", "bfloat16"):
+        trainer = Trainer(TrainerArgs(
+            name=f"nan_{dtype}", save_dir=os.path.join(WORK, "nan_results"),
+            preprocessed_data_dir=one, num_epochs=1, epochs_per_save=100,
+            epochs_per_plot=100, steps_per_print=1, dtype=dtype, scan_epochs=True,
+            async_save=False, device="cuda"))
+        reset_counts()
+        checked = debug.kernel_launches_checked
+        t0 = time.perf_counter()
+        with debug.nan_debug_mode():
+            trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: n for k, n in counts().items() if n}
+        checked = debug.kernel_launches_checked - checked
+        want = per_step(1, 64, getattr(torch, dtype))
+        runner = trainer._runner
+        print(f"obs: nan_debug_mode, one {dtype} 1 x 64 step through the trainer with "
+              f"--scan_epochs 1: {wall:.1f} s (logger set-up included); step {trainer.state.step}; "
+              f"replays {runner.replays}, graph captured {runner.graph is not None}; launches "
+              f"{launched} (expected {want}); kernel outputs checked {checked}", flush=True)
+        if trainer.state.step != 1 or runner.replays or runner.graph is not None \
+                or launched != want or checked != sum(launched.values()):
+            raise AssertionError(f"the {dtype} step under nan_debug_mode went wrong")
+
+    # A K2 launch on finite input that the kernel itself turns into NaN.
+    x = torch.randn(1, 8, 64, device=device)
+    x[0, 3] = OVERFLOW
+    s, b = torch.ones(8, device=device), torch.zeros(8, device=device)
+    plain = in_gate.instance_norm_plain(x, s, b)
+    kernel = in_gate.instance_norm(x, s, b)
+    nan_rows = [int(torch.isnan(t[0]).any(-1).nonzero().flatten()[0]) if torch.isnan(t).any()
+                else None for t in (plain, kernel)]
+    try:
+        with debug.nan_debug_mode():
+            in_gate.instance_norm(x, s, b)
+        named = None
+    except FloatingPointError as e:
+        named = str(e)
+    print(f"obs: a K2 row of {OVERFLOW:g} (finite input): first NaN row of the plain version "
+          f"{nan_rows[0]}, of the kernel {nan_rows[1]}; under nan_debug_mode: {named!r}",
+          flush=True)
+    if nan_rows != [3, 3] or named is None or not named.endswith("CUDA kernel in_forward"):
+        raise AssertionError("K2's own NaN was not named after its entry")
+
+    # A NaN made in the backward, on autograd's device thread.
+    z = torch.zeros(3, device=device, requires_grad=True)
+    try:
+        with debug.nan_debug_mode():
+            torch.linalg.norm(z).backward()
+        named = None
+    except FloatingPointError as e:
+        named = str(e)
+    print(f"obs: the gradient of the norm of zeros(3) on the card under nan_debug_mode: "
+          f"{named!r}", flush=True)
+    if named is None:
+        raise AssertionError("a NaN made in a CUDA backward did not raise")
+
+
+# ---------------------------------------------------------------------------
+# pairwise: the launcher over three speakers (BASELINE config 4 at N = 3)
+# ---------------------------------------------------------------------------
+
+PAIR_SPEAKERS = ("VCC2SF3", "VCC2TF1", "VCC2SM3")
+PAIR_UTTERANCES = 4
+
+
+def phase_pairwise(device) -> None:
+    """benchmarks/pairwise_run.py:35-80 with the port's modules: 3 synthetic
+    speakers of 4 utterances, preprocessed on the card (K8), the launcher for
+    host 0 of 1 at the published width (one train CLI process a pair, each
+    one epoch), then each pair's checkpoint converted by the conversion CLI
+    on the card; the dry runs of hosts 0 and 1 of 2 split the 3 pairs."""
+    wavs, pre, save = (os.path.join(WORK, "pairwise", d) for d in ("wavs", "pre", "results"))
+    make_corpus(wavs, speakers={s: DEFAULT_SPEAKERS[s] for s in PAIR_SPEAKERS},
+                n_utts=PAIR_UTTERANCES, seed=2)
+    reset_counts()
+    mel_fn = preprocess_cli.make_mel_fn(device)
+    kept = [preprocess_cli.preprocess_speaker(wavs, pre, sid, mel_fn, device)
+            for sid in PAIR_SPEAKERS]
+    k8 = melspec.LOG_MEL_KERNEL.launches
+    print(f"pairwise: preprocessed {dict(zip(PAIR_SPEAKERS, kept))} utterances on the card, "
+          f"{k8} K8 launches", flush=True)
+    if kept != [PAIR_UTTERANCES] * 3 or k8 != 3 * PAIR_UTTERANCES:
+        raise AssertionError("the pairwise corpus was not preprocessed on the card")
+
+    pairs = launch_pairwise.pair_jobs(PAIR_SPEAKERS)
+    base = ["--preprocessed_data_dir", pre, "--speaker_ids", *PAIR_SPEAKERS, "--save_dir", save]
+    shards = []
+    for host in (0, 1):
+        out = _run_cli(launch_pairwise.main,
+                       base + ["--host_index", str(host), "--num_hosts", "2", "--dry_run"])
+        shards.append([tuple(line.split("--speaker_A_id ")[1].split()[0:3:2])
+                       for line in out.splitlines() if "--speaker_A_id" in line])
+    print(f"pairwise: --dry_run, hosts 0 and 1 of 2: {shards}", flush=True)
+    if set(shards[0]) & set(shards[1]) or sorted(shards[0] + shards[1]) != pairs:
+        raise AssertionError("the two hosts' shards do not partition the pairs")
+
+    # Each job a train CLI process on the card, its output in a log; the
+    # children import the package from this checkout.
+    walls, logs = [], []
+
+    def timed_run(cmd, **kwargs):
+        logs.append(os.path.join(WORK, "pairwise", f"job{len(logs)}.log"))
+        t0 = time.perf_counter()
+        with open(logs[-1], "w") as log:
+            try:
+                return subprocess.run(cmd, stdout=log, stderr=subprocess.STDOUT, **kwargs)
+            except subprocess.CalledProcessError:
+                with open(logs[-1]) as f:
+                    print(f"pairwise: job {len(logs)}'s output:\n{f.read()[-4000:]}", flush=True)
+                raise
+            finally:
+                walls.append(time.perf_counter() - t0)
+
+    saved_path = os.environ.get("PYTHONPATH")
+    launch_pairwise.subprocess = types.SimpleNamespace(run=timed_run)
+    os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, saved_path) if p)
+    torch.cuda.empty_cache()
+    try:
+        printed = _run_cli(launch_pairwise.main, base + [
+            "--host_index", "0", "--num_hosts", "1", "--", "--num_epochs", "1",
+            "--batch_size", "1", "--epochs_per_save", "1", "--epochs_per_plot", "100000",
+            "--steps_per_print", "1"])
+    finally:
+        launch_pairwise.subprocess = subprocess
+        if saved_path is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved_path
+    print(f"pairwise: launcher, host 0 of 1: {printed.splitlines()[0]}; each job's wall "
+          f"(process start, state creation, {PAIR_UTTERANCES} steps as CUDA-graph replays "
+          f"after the first, checkpoint write): {[round(w, 1) for w in walls]} s", flush=True)
+
+    for a, b in pairs:
+        name = f"mask_cyclegan_vc_{a}_{b}"
+        ckpt_dir = os.path.join(save, name, "ckpts")
+        with open(logs[pairs.index((a, b))]) as f:
+            last = [line for line in f.read().splitlines() if "g_loss" in line][-1:]
+        with open(os.path.join(save, name, f"{name}.log")) as f:
+            epoch = [line for line in f.read().splitlines() if "epoch 1 done" in line]
+        if not os.path.exists(os.path.join(ckpt_dir, "00001_state.npz")):
+            raise AssertionError(f"no checkpoint for the pair {a}<->{b}")
+        reset_counts()
+        t0 = time.perf_counter()
+        _run_cli(convert_main, ["--name", name, "--save_dir", save, "--preprocessed_data_dir",
+                                pre, "--speaker_A_id", a, "--speaker_B_id", b, "--ckpt_dir",
+                                ckpt_dir, "--load_epoch", "1", "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        launched = {k: n for k, n in counts().items() if n}
+        src = load_speaker(pre, a)[0]
+        outs = [np.load(os.path.join(save, name, "converted_audio_1",
+                                     f"{i}-converted_{a}_to_{b}.npy")) for i in range(len(src))]
+        ok = all(o.shape == m.shape and np.isfinite(o).all() for o, m in zip(outs, src))
+        want = {k: len(src) * n for k, n in PER_FORWARD.items()}
+        print(f"pairwise: {a}<->{b}: 00001_state.npz; its last logged step {last}; "
+              f"{epoch} (the train log's time of the epoch, its checkpoint write started); the "
+              f"conversion CLI on the card converted {len(outs)} utterances of "
+              f"{[m.shape[1] for m in src]} frames in {wall:.1f} s, finite and of the input's "
+              f"shape: {ok}; launches {launched} (expected {want})", flush=True)
+        if not ok or len(outs) != PAIR_UTTERANCES or launched != want:
+            raise AssertionError(f"the pair {a}<->{b} did not convert on the card")
+
+
 def measure_shuffles(sites, device):
     """K6 on every inverse-shuffle site, and K7 at the transposed shape, in
     the site's dtype: exact against their plain versions, on the vector
@@ -2331,6 +2612,10 @@ def main() -> int:
     took("eval decode")
     phase_distributed(pre, device, train_args, det_losses)
     took("distributed")
+    phase_obs(pre, device)
+    took("obs")
+    phase_pairwise(device)
+    took("pairwise")
 
     measure_sites(convert_sites, device, "convert/forward")
     step1 = measure_sites(sites1, device, "train 1x64/step")

@@ -885,7 +885,7 @@ cudaError_t launch_blocks(const T* const src[3], T* const dst[3], const T* w1,
 template <typename T>
 int forward(const void* x_, const void* w1_, const float* b1, const void* wm_,
             const float* bm, const void* k7_, const float* b7, void* buf0_,
-            void* buf1_, void* out_, int B, int C, int W, int emit_lrelu,
+            void* buf1_, void* buf2_, void* out_, int B, int C, int W, int emit_lrelu,
             void* stream) {
   if (C < 4 || C > kMaxC || 1024 % C != 0 || W < 1) return (int)cudaErrorInvalidValue;
   const T* x = static_cast<const T*>(x_);
@@ -894,6 +894,7 @@ int forward(const void* x_, const void* w1_, const float* b1, const void* wm_,
   const T* k7 = static_cast<const T*>(k7_);
   T* buf0 = static_cast<T*>(buf0_);
   T* buf1 = static_cast<T*>(buf1_);
+  T* buf2 = static_cast<T*>(buf2_);
   T* out = static_cast<T*>(out_);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int dev = 0;
@@ -901,11 +902,11 @@ int forward(const void* x_, const void* w1_, const float* b1, const void* wm_,
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   const T* const src[3] = {x, buf0, buf1};
-  T* const dst[3] = {buf0, buf1, k7 ? buf0 : out};
+  T* const dst[3] = {buf0, buf1, k7 ? buf2 : out};
   err = launch_blocks(src, dst, w1, b1, wm, bm, B, C, W, emit_lrelu && !k7, dev, st);
   if (err != cudaSuccess) return (int)err;
   if (k7) {
-    tail_kernel<T><<<dim3((W + 255) / 256, B), 256, 0, st>>>(buf0, k7, b7, out, C, W);
+    tail_kernel<T><<<dim3((W + 255) / 256, B), 256, 0, st>>>(buf2, k7, b7, out, C, W);
     err = cudaGetLastError();
   }
   return (int)err;
@@ -915,24 +916,27 @@ int forward(const void* x_, const void* w1_, const float* b1, const void* wm_,
 
 extern "C" {
 
-// x: (B, C, W); buf0, buf1: (B, C, W) scratch; out: (B, C, W), or (B, W)
-// when k7 is given. x, w1, wm, k7, the buffers and out are f32, or bf16 in
-// the _bf16 entry; b1, bm and b7 are f32 in both. C a power of two from 4
-// to 256, W >= 1. Returns a cudaError_t.
+// x: (B, C, W); buf0, buf1, buf2: (B, C, W) scratch; out: (B, C, W), or
+// (B, W) when k7 is given. Block 1 writes buf0, block 2 buf1, block 3 out,
+// or buf2 when k7 is given, which the tail reads (buf2 is unused without
+// k7): every block's output survives the call. x, w1, wm, k7, the buffers
+// and out are f32, or bf16 in the _bf16 entry; b1, bm and b7 are f32 in
+// both. C a power of two from 4 to 256, W >= 1. Returns a cudaError_t.
 int melgan_resstack_forward(const void* x, const void* w1, const float* b1,
                             const void* wm, const float* bm, const void* k7,
-                            const float* b7, void* buf0, void* buf1, void* out,
-                            int B, int C, int W, int emit_lrelu, void* stream) {
-  return forward<float>(x, w1, b1, wm, bm, k7, b7, buf0, buf1, out, B, C, W,
+                            const float* b7, void* buf0, void* buf1, void* buf2,
+                            void* out, int B, int C, int W, int emit_lrelu, void* stream) {
+  return forward<float>(x, w1, b1, wm, bm, k7, b7, buf0, buf1, buf2, out, B, C, W,
                         emit_lrelu, stream);
 }
 
 int melgan_resstack_forward_bf16(const void* x, const void* w1, const float* b1,
                                  const void* wm, const float* bm, const void* k7,
-                                 const float* b7, void* buf0, void* buf1, void* out,
-                                 int B, int C, int W, int emit_lrelu, void* stream) {
-  return forward<__nv_bfloat16>(x, w1, b1, wm, bm, k7, b7, buf0, buf1, out, B, C,
-                                W, emit_lrelu, stream);
+                                 const float* b7, void* buf0, void* buf1, void* buf2,
+                                 void* out, int B, int C, int W, int emit_lrelu,
+                                 void* stream) {
+  return forward<__nv_bfloat16>(x, w1, b1, wm, bm, k7, b7, buf0, buf1, buf2, out, B,
+                                C, W, emit_lrelu, stream);
 }
 
 const char* kernel_error_string(int code) {

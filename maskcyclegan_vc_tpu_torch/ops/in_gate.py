@@ -32,6 +32,8 @@ the JAX package's own (``_in_bwd``, ``_insw_bwd``, ``_inglu_bwd``: XLA
 there, eager PyTorch here, one code for both devices), recomputing the
 statistics from the saved input in f32 and returning dx in x's dtype,
 dscale and dbias in f32. The masked functions have no backward: no training path runs them.
+Inside ``utils.debug.nan_debug_mode`` each launch's output is checked for
+NaN (``debug.check_kernel_outputs``), as in every kernel wrapper of the port.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from typing import Optional, Sequence
 import torch
 
 from maskcyclegan_vc_tpu_torch.ops.cuda_lib import INT, PTR, CudaKernel, load
+from maskcyclegan_vc_tpu_torch.utils import debug
 
 EPS = 1e-5
 
@@ -190,12 +193,13 @@ def _launch_rows(kernel: str, x: torch.Tensor, vecs, lengths,
     y = torch.empty((B, out_channels) + tuple(x.shape[2:]), device=x.device,
                     dtype=x.dtype)
     route = ctypes.c_int(-1)
+    entry = ENTRIES[kernel][x.dtype]
     with torch.cuda.device(x.device):
-        ENTRIES[kernel][x.dtype](x.data_ptr(), *(v.data_ptr() for v in vecs),
-                                 _ptr(lengths), y.data_ptr(), B, out_channels,
-                                 x[0, 0].numel(), x.shape[-1], ctypes.addressof(route),
-                                 torch.cuda.current_stream().cuda_stream)
+        entry(x.data_ptr(), *(v.data_ptr() for v in vecs), _ptr(lengths), y.data_ptr(), B,
+              out_channels, x[0, 0].numel(), x.shape[-1], ctypes.addressof(route),
+              torch.cuda.current_stream().cuda_stream)
     ROUTES[kernel][x.dtype][ROUTE_NAMES[route.value]] += 1
+    debug.check_kernel_outputs(entry.symbol, y)
     return y
 
 

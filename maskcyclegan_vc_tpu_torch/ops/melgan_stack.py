@@ -25,7 +25,9 @@ dtype (``ENTRIES``) for x on the card and runs that dtype's plain version
 (``PLAIN``) for x on the CPU; anything else raises. Each entry has its own
 launch count, which counts calls: one call is 3 device launches (one per
 block), 4 with the tail. Inference only, as in JAX: a call that would need
-a gradient raises.
+a gradient raises. Every block writes its own buffer, so that inside
+``utils.debug.nan_debug_mode`` each block's output is checked in order,
+then the tail's, and the first launch to make a NaN is the one named.
 """
 
 from __future__ import annotations
@@ -36,11 +38,12 @@ import torch
 import torch.nn.functional as F
 
 from maskcyclegan_vc_tpu_torch.ops.cuda_lib import INT, PTR, CudaKernel
+from maskcyclegan_vc_tpu_torch.utils import debug
 
 DILATIONS = (1, 3, 9)
 LRELU_SLOPE = 0.2
 
-_ARGS = [PTR] * 10 + [INT, INT, INT, INT, PTR]
+_ARGS = [PTR] * 11 + [INT, INT, INT, INT, PTR]
 MELGAN_STACK_KERNEL = CudaKernel("melgan_stack", "melgan_resstack_forward", _ARGS)
 # The entry for each dtype of x.
 ENTRIES = {torch.float32: MELGAN_STACK_KERNEL,
@@ -191,12 +194,19 @@ def melgan_resstack(x: torch.Tensor, blocks: Blocks, emit_lrelu: bool = False,
         raise ValueError(f"the kernel takes C a power of two from 4 to 256, got {C}")
     x = x.contiguous()
     packed = pack_weights(blocks, tail, x.dtype)
+    # Blocks 1 and 2 write buf0 and buf1; block 3 writes out, or buf2 for
+    # the tail to read.
     buf0, buf1 = torch.empty_like(x), torch.empty_like(x)
+    buf2 = torch.empty_like(x) if tail is not None else None
     out = torch.empty((B, W) if tail is not None else (B, C, W), device=x.device,
                       dtype=x.dtype)
     ptrs = [None if t is None else t.data_ptr() for t in packed]
+    kernel = ENTRIES[x.dtype]
     with torch.cuda.device(x.device):
-        ENTRIES[x.dtype](x.data_ptr(), *ptrs, buf0.data_ptr(), buf1.data_ptr(),
-                         out.data_ptr(), B, C, W, int(emit_lrelu),
-                         torch.cuda.current_stream().cuda_stream)
+        kernel(x.data_ptr(), *ptrs, buf0.data_ptr(), buf1.data_ptr(),
+               None if buf2 is None else buf2.data_ptr(), out.data_ptr(), B, C, W,
+               int(emit_lrelu), torch.cuda.current_stream().cuda_stream)
+    tail_out = [] if tail is None else [("tail", out)]
+    debug.check_kernel_outputs(kernel.symbol, ("block 1 of 3", buf0), ("block 2 of 3", buf1),
+                               ("block 3 of 3", out if tail is None else buf2), *tail_out)
     return out

@@ -27,6 +27,7 @@ from maskcyclegan_vc_tpu_torch.data.melspec import (
     num_frames,
 )
 from maskcyclegan_vc_tpu_torch.ops.cuda_lib import INT, PTR, CudaKernel
+from maskcyclegan_vc_tpu_torch.utils import debug
 
 LOG_MEL_KERNEL = CudaKernel("melspec", "log_mel_forward",
                             [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, PTR])
@@ -105,4 +106,5 @@ def log_mel_spectrogram_fused(audio: torch.Tensor, pad: bool = True) -> torch.Te
     with torch.cuda.device(audio.device):
         LOG_MEL_KERNEL(audio.data_ptr(), wc.data_ptr(), ws.data_ptr(), melT.data_ptr(),
                        out.data_ptr(), B, L, T, torch.cuda.current_stream().cuda_stream)
+    debug.check_kernel_outputs(LOG_MEL_KERNEL.symbol, out)
     return out

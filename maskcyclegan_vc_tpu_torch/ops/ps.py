@@ -49,6 +49,9 @@ each one's gradient is the other kernel. On the card each launch counts the
 route its C entry reports (``SHUFFLE_ROUTES``): 16-byte units ("vector")
 where a row's W elements fill whole 16-byte words and both tensors start on
 a 16-byte boundary, else one element pair a thread ("pair").
+
+Inside ``utils.debug.nan_debug_mode`` the tensors each launch wrote are
+checked for NaN (``debug.check_kernel_outputs``).
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ from maskcyclegan_vc_tpu_torch.ops.in_gate import (
     check_args,
     wants_grad,
 )
+from maskcyclegan_vc_tpu_torch.utils import debug
 
 _FWD_ARGS = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR]
 _BWD_ARGS = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR]
@@ -203,11 +207,12 @@ def _launch_shuffle(kernel: str, src: torch.Tensor) -> torch.Tensor:
     if src.data_ptr() % (2 * src.element_size()):
         raise ValueError("expected a tensor aligned to two elements")
     route = ctypes.c_int()
+    entry = ENTRIES[kernel][src.dtype]
     with torch.cuda.device(src.device):
-        ENTRIES[kernel][src.dtype](src.data_ptr(), out.data_ptr(), B, C, H, W,
-                                   ctypes.addressof(route),
-                                   torch.cuda.current_stream().cuda_stream)
+        entry(src.data_ptr(), out.data_ptr(), B, C, H, W, ctypes.addressof(route),
+              torch.cuda.current_stream().cuda_stream)
     SHUFFLE_ROUTES[kernel][src.dtype][SHUFFLE_ROUTE_NAMES[route.value]] += 1
+    debug.check_kernel_outputs(entry.symbol, out)
     return out
 
 
@@ -257,14 +262,15 @@ def _forward(x, scale, bias, lengths=None, stats=False):
         mean = torch.empty((B, C), device=x.device, dtype=torch.float32)
         inv = torch.empty_like(mean)
     route = ctypes.c_int()
+    entry = ENTRIES["ps_in_swish"][x.dtype]
     with torch.cuda.device(x.device):
-        ENTRIES["ps_in_swish"][x.dtype](
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            None if lengths is None else lengths.data_ptr(),
-            y.data_ptr(), None if mean is None else mean.data_ptr(),
-            None if inv is None else inv.data_ptr(), B, C, H, W,
-            ctypes.addressof(route), torch.cuda.current_stream().cuda_stream)
+        entry(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+              None if lengths is None else lengths.data_ptr(),
+              y.data_ptr(), None if mean is None else mean.data_ptr(),
+              None if inv is None else inv.data_ptr(), B, C, H, W,
+              ctypes.addressof(route), torch.cuda.current_stream().cuda_stream)
     ROUTES[x.dtype][ROUTE_NAMES[route.value]] += 1
+    debug.check_kernel_outputs(entry.symbol, y, *([mean, inv] if stats else []))
     return y, mean, inv
 
 
@@ -299,11 +305,12 @@ def pixel_shuffle_in_swish_backward(x: torch.Tensor, dy: torch.Tensor,
     dx = torch.empty_like(x)
     dscale = torch.empty((B, C), device=x.device, dtype=torch.float32)
     dbias = torch.empty_like(dscale)
+    entry = ENTRIES["ps_in_swish_bwd"][x.dtype]
     with torch.cuda.device(x.device):
-        ENTRIES["ps_in_swish_bwd"][x.dtype](
-            x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            mean.data_ptr(), inv.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
-            dbias.data_ptr(), B, C, H, W, torch.cuda.current_stream().cuda_stream)
+        entry(x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+              mean.data_ptr(), inv.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+              dbias.data_ptr(), B, C, H, W, torch.cuda.current_stream().cuda_stream)
+    debug.check_kernel_outputs(entry.symbol, dx, dscale, dbias)
     return dx, dscale.sum(0), dbias.sum(0)
 
 

@@ -51,6 +51,7 @@ from maskcyclegan_vc_tpu_torch.data.dataset import MelBank, sample_batch, step_s
 from maskcyclegan_vc_tpu_torch.train.schedules import identity_lambda
 from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, TrainState
 from maskcyclegan_vc_tpu_torch.train.step import LOGGED_METRICS
+from maskcyclegan_vc_tpu_torch.utils.debug import nan_debug_active
 
 
 class StepRunner:
@@ -106,7 +107,12 @@ class StepRunner:
     def capture(self, state: TrainState, update, lam_id: float, stream):
         """(graph, batch, metrics row) of the variant's step, captured on
         ``stream``. Nothing runs: the batch and the row are the graph's own
-        tensors, which each replay overwrites."""
+        tensors, which each replay overwrites. Raises inside
+        ``utils.debug.nan_debug_mode``, whose checks a replay would skip."""
+        if nan_debug_active():
+            raise RuntimeError("a CUDA graph replays its kernels without the NaN checks of "
+                               "nan_debug_mode: run the steps one at a time inside it "
+                               "(the trainer does)")
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         with torch.cuda.graph(graph, stream=stream):

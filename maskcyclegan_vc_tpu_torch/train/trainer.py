@@ -11,7 +11,10 @@ resumes the batch stream of an uninterrupted run, in either mode:
   with no host synchronisation inside the epoch; the epoch's metrics are
   read from the device once, at its end, and then logged step by step.
 - otherwise one step at a time from the host, the device read only at the
-  print cadence and at the epoch's end.
+  print cadence and at the epoch's end. Inside
+  ``utils.debug.nan_debug_mode`` every epoch runs this way, whatever
+  ``scan_epochs`` says: a CUDA graph would hide the operations from its
+  checks.
 
 ``dtype``, ``precision`` and ``fused_norms`` resolve as the JAX trainer's
 do (``train/trainer.py:137-151``) on a backend that is not a TPU: ``auto``
@@ -33,8 +36,9 @@ does not divide raises; a batch smaller than the world runs replicated
 
 At each epoch's end every step's logged losses are checked for finiteness,
 and a failing epoch's per-step values are written to the log before the run
-stops. However the loop ends, an in-flight checkpoint write is flushed and
-the logger closed.
+stops; the error names the remedy, a rerun under ``nan_debug_mode``.
+However the loop ends, an in-flight checkpoint write is flushed and the
+logger closed.
 """
 
 from __future__ import annotations
@@ -82,7 +86,7 @@ from maskcyclegan_vc_tpu_torch.train.step import (
     as_train_step,
     make_update,
 )
-from maskcyclegan_vc_tpu_torch.utils.debug import check_finite
+from maskcyclegan_vc_tpu_torch.utils.debug import check_finite, nan_debug_active
 from maskcyclegan_vc_tpu_torch.utils.device import allows_tf32, precision_scope, resolve_device
 
 DTYPES = {"auto": None, "float32": None, "bfloat16": torch.bfloat16}
@@ -247,7 +251,7 @@ class Trainer:
         for epoch in range(self.start_epoch, a.num_epochs + 1):
             t0 = time.time()
             first = self.state.step + 1
-            if self._runner is not None:
+            if self._runner is not None and not nan_debug_active():
                 # The epoch's one read of the device.
                 vals = self._runner.run(self.state, self.steps_per_epoch).cpu().tolist()
                 rows = [dict(zip(LOGGED_METRICS, v)) for v in vals]
@@ -286,7 +290,9 @@ class Trainer:
         vals = to_host(rows)
         try:
             check_finite({f"step {first_step + i}": v for i, v in enumerate(vals)},
-                         f"train metrics at epoch {epoch}")
+                         f"train metrics at epoch {epoch} (rerun under "
+                         "maskcyclegan_vc_tpu_torch.utils.debug.nan_debug_mode to "
+                         "localize the producing op)")
         except FloatingPointError:
             for i, v in enumerate(vals):
                 self.logger.write(" ".join([f"[epoch {epoch} step {first_step + i}]"]

@@ -150,7 +150,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "data/griffin_lim.py", "eval/f0.py", "eval/mcep.py", "eval/metrics.py",
                 "models/melgan.py", "ops/melspec.py", "ops/melgan_stack.py",
                 "parallel/dist.py", "parallel/mesh.py", "parallel/stats.py",
-                "data/synth.py", "data/native.py"):
+                "data/synth.py", "data/native.py", "obs/profiler.py",
+                "cli/launch_pairwise.py"):
         assert f"maskcyclegan_vc_tpu_torch/{sub}" in names, sub
     for path in files:
         for mod in _imported_modules(path):

@@ -1488,3 +1488,167 @@ def test_k2_bf16_rows_of_odd_length(device, shape):
     lengths = torch.tensor([W, W // 2 + 1, 1][:shape[0]], dtype=torch.int32, device=device)
     _check_rows("in", x, vecs, None, "bulk")
     _check_rows("in", x, vecs, lengths, "bulk")
+
+
+# ---------- nan_debug_mode and the trace on the card ----------
+
+def _kernel_calls(device, dtype):
+    """{name: call} of one finite call of each kernel entry of ``dtype``:
+    K1-K3 (unmasked and masked), K4 then K5 through autograd (K5 on
+    autograd's device thread), K5 and K6, K7 called directly, K8 (f32 only)
+    and K9 without and with the tail. Each call returns its output."""
+    from maskcyclegan_vc_tpu_torch.ops import melgan_stack, melspec
+
+    g = torch.Generator(device=device).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, device=device, generator=g).to(dtype)
+
+    def vec(C):
+        return torch.rand(C, device=device, generator=g) + 0.5
+
+    x, hg, x4, dy = rnd(2, 8, 16, 20), rnd(2, 16, 16, 20), rnd(2, 32, 8, 10), rnd(2, 8, 16, 20)
+    lengths = torch.tensor([20, 13], device=device, dtype=torch.int32)
+    s, b, s2, b2 = vec(8), vec(8), vec(8), vec(8)
+    stage_x, blocks, tail = _stage(device, 1, 64, 300, 11)
+    stage_x = stage_x.to(dtype)
+
+    def ps_autograd():
+        xg = x4.detach().requires_grad_()
+        y = ps.pixel_shuffle_in_swish(xg, s, b)
+        y.float().square().sum().backward()
+        return xg.grad
+
+    def k5():
+        _, mean, inv = ps.pixel_shuffle_in_swish_with_stats(x4, s, b)
+        return ps.pixel_shuffle_in_swish_backward(x4, dy, s, b, mean, inv)[0]
+
+    calls = {
+        "K1": lambda: in_gate.instance_norm_glu(hg, s, b, s2, b2),
+        "K1 masked": lambda: in_gate.instance_norm_glu(hg, s, b, s, b, lengths),
+        "K2": lambda: in_gate.instance_norm(x, s, b),
+        "K2 masked": lambda: in_gate.instance_norm(x, s, b, lengths),
+        "K3": lambda: in_gate.instance_norm_swish(x, s, b),
+        "K4, K5": ps_autograd,
+        "K4 masked": lambda: ps.pixel_shuffle_in_swish(x4, s, b, lengths),
+        "K5": k5,
+        "K6": lambda: ps.inverse_pixel_shuffle(dy),
+        "K7": lambda: ps.pixel_shuffle(x4),
+        "K9": lambda: melgan_stack.melgan_resstack(stage_x, blocks),
+        "K9 tail": lambda: melgan_stack.melgan_resstack(stage_x, blocks, tail=tail),
+    }
+    if dtype == torch.float32:
+        audio = torch.randn(2, 256 * 70, device=device, generator=g) * 0.3
+        calls["K8"] = lambda: melspec.log_mel_spectrogram_fused(audio)
+    return calls
+
+
+def _launches_of_all_entries():
+    from maskcyclegan_vc_tpu_torch.ops import melgan_stack, melspec
+
+    entries = [e for k in (*in_gate.ENTRIES.values(), *ps.ENTRIES.values(),
+                           melgan_stack.ENTRIES) for e in k.values()]
+    return sum(e.launches for e in [*entries, melspec.LOG_MEL_KERNEL])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nan_debug_mode_checks_every_kernel_launch(device, dtype):
+    """Every entry of K1-K9 on finite input under the mode: no raise, one
+    checked output per launch, and the outputs of the run outside the mode,
+    bit for bit."""
+    from maskcyclegan_vc_tpu_torch.utils import debug
+
+    for name, call in _kernel_calls(device, dtype).items():
+        with torch.inference_mode(name.startswith("K9") or name == "K8"):
+            outside = call()
+        launches, checked = _launches_of_all_entries(), debug.kernel_launches_checked
+        with debug.nan_debug_mode(), torch.inference_mode(name.startswith("K9") or name == "K8"):
+            inside = call()
+        torch.cuda.synchronize()
+        n = _launches_of_all_entries() - launches
+        assert n >= 1 and debug.kernel_launches_checked - checked == n, name
+        assert torch.equal(inside, outside), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nan_made_by_a_kernel_is_named_after_it(device, dtype):
+    """K2 on finite input: a row of 3e38 overflows its f32 sum, so the mean
+    is inf and the row's output NaN, in the plain version too. The mode
+    names the C entry, not the next aten op; K9 on a NaN input names its
+    first block."""
+    from maskcyclegan_vc_tpu_torch.ops import melgan_stack
+    from maskcyclegan_vc_tpu_torch.utils import debug
+
+    x = torch.randn(1, 8, 64, device=device).to(dtype)
+    x[0, 3] = 3e38
+    s, b = torch.ones(8, device=device), torch.zeros(8, device=device)
+    assert torch.isfinite(x).all()
+    for y in (in_gate.instance_norm(x, s, b), in_gate.instance_norm_plain(x, s, b)):
+        assert torch.isnan(y[0, 3]).all() and not torch.isnan(y[0, :3]).any()
+    entry = "in_forward" + ("_bf16" if dtype == torch.bfloat16 else "")
+    with debug.nan_debug_mode():
+        with pytest.raises(FloatingPointError, match=f"CUDA kernel {entry}$"):
+            in_gate.instance_norm(x, s, b)
+    stage_x, blocks, tail = _stage(device, 1, 32, 100, 3)
+    stage_x[0, 5, 50] = float("nan")
+    with debug.nan_debug_mode(), torch.inference_mode():
+        with pytest.raises(FloatingPointError, match=r"\(block 1 of 3\)"):
+            melgan_stack.melgan_resstack(stage_x.to(dtype), blocks, tail=tail)
+
+
+def test_nan_debug_mode_sees_a_cuda_backward(device):
+    """Autograd runs a CUDA backward on its device thread: the mode still
+    sees its ops, and the norm of zeros raises in its backward (the spy,
+    after the norm, runs its backward first and records the thread)."""
+    import threading
+
+    from maskcyclegan_vc_tpu_torch.utils import debug
+
+    threads = set()
+
+    class Spy(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            return t.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            threads.add(threading.get_ident())
+            return g
+
+    z = torch.zeros(3, device=device, requires_grad=True)
+    with debug.nan_debug_mode():
+        norm = Spy.apply(torch.linalg.norm(z))
+        with pytest.raises(FloatingPointError, match=r"aten\.div\."):
+            norm.backward()
+    assert threads and threading.get_ident() not in threads
+
+
+def test_trace_names_the_ports_kernels(device, tmp_path):
+    """One f32 train step at a tiny width inside ``obs.profiler.trace``: the
+    written trace holds K1-K5 by their kernels' names, each as often as the
+    counters saw it launched."""
+    import glob
+    import json
+
+    from maskcyclegan_vc_tpu_torch.obs import profiler
+
+    cfg, banks = _tiny_training(device)
+    state = create_train_state(cfg, 0, device)
+    step = make_train_step(cfg)
+    batch = sample_batch(step_generator(0, 0, device), *banks, 1, 32, 25)
+    step(state, batch)
+    def f32_launches():
+        return {k: e[torch.float32].launches
+                for k, e in (*in_gate.ENTRIES.items(), *ps.ENTRIES.items())}
+
+    before = f32_launches()
+    with profiler.trace(str(tmp_path)):
+        step(state, batch)
+    launched = {k: n - before[k] for k, n in f32_launches().items()}
+    (path,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
+    with open(path) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    for k in ("in_glu", "in", "in_swish", "ps_in_swish", "ps_in_swish_bwd"):
+        seen = sum(bool(re.search(profiler.KERNEL_NAMES[k], n)) for n in kernels)
+        assert 0 < seen == launched[k], (k, seen, launched[k], sorted(set(kernels))[:20])
