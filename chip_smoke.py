@@ -2328,14 +2328,25 @@ def phase_obs(pre: str, device) -> None:
             epochs_per_plot=100, steps_per_print=1, dtype=dtype, scan_epochs=True,
             async_save=False, device="cuda"))
         reset_counts()
-        checked = debug.kernel_launches_checked
+        checked = []
+        real_check = debug.check_kernel_outputs
+
+        def check(symbol, *outputs):
+            if debug.nan_debug_active():
+                checked.append(symbol)
+            real_check(symbol, *outputs)
+
+        debug.check_kernel_outputs = check
         t0 = time.perf_counter()
-        with debug.nan_debug_mode():
-            trainer.train()
-        torch.cuda.synchronize()
+        try:
+            with debug.nan_debug_mode():
+                trainer.train()
+            torch.cuda.synchronize()
+        finally:
+            debug.check_kernel_outputs = real_check
         wall = time.perf_counter() - t0
         launched = {k: n for k, n in counts().items() if n}
-        checked = debug.kernel_launches_checked - checked
+        checked = len(checked)
         want = per_step(1, 64, getattr(torch, dtype))
         runner = trainer._runner
         print(f"obs: nan_debug_mode, one {dtype} 1 x 64 step through the trainer with "

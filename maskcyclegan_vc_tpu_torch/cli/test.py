@@ -29,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -40,6 +41,7 @@ from maskcyclegan_vc_tpu_torch.eval.f0 import utterance_f0
 from maskcyclegan_vc_tpu_torch.eval.mcep import mcd_dtw_wav
 from maskcyclegan_vc_tpu_torch.eval.metrics import mcd_dtw, mel_spectral_distance
 from maskcyclegan_vc_tpu_torch.models import Generator
+from maskcyclegan_vc_tpu_torch.obs import profiler
 from maskcyclegan_vc_tpu_torch.utils.device import resolve_device
 
 BUCKET = 64
@@ -70,19 +72,25 @@ def make_convert_fn(gen: Generator) -> Callable[[np.ndarray], np.ndarray]:
 
     The utterance is padded to a bucket of a multiple of 64 frames and
     ``lengths`` is passed, so the padding changes nothing in the output.
+    A call is a ``convert`` span holding ``convert.h2d`` (the padded mel and
+    its length to the device), ``convert.generator`` and ``convert.d2h``.
     """
     device = next(gen.parameters()).device
 
     @torch.inference_mode()
     def convert(mel: np.ndarray) -> np.ndarray:
-        m, t = mel.shape
-        bucket = -(-t // BUCKET) * BUCKET
-        x = torch.zeros((1, m, bucket), dtype=torch.float32)
-        x[0, :, :t] = torch.from_numpy(np.asarray(mel, np.float32))
-        x = x.to(device)
-        y = gen(x, torch.ones_like(x),
-                torch.tensor([t], dtype=torch.int32, device=device))
-        return y[0, :, :t].cpu().numpy()
+        with profiler.span("convert"):
+            m, t = mel.shape
+            with profiler.span("convert.h2d"):
+                bucket = -(-t // BUCKET) * BUCKET
+                x = torch.zeros((1, m, bucket), dtype=torch.float32)
+                x[0, :, :t] = torch.from_numpy(np.asarray(mel, np.float32))
+                x = x.to(device)
+                lengths = torch.tensor([t], dtype=torch.int32, device=device)
+            with profiler.span("convert.generator"):
+                y = gen(x, torch.ones_like(x), lengths)
+            with profiler.span("convert.d2h"):
+                return y[0, :, :t].cpu().numpy()
 
     return convert
 
@@ -90,6 +98,20 @@ def make_convert_fn(gen: Generator) -> Callable[[np.ndarray], np.ndarray]:
 def convert_utterance(gen: Generator, mel: np.ndarray) -> np.ndarray:
     """One-shot convenience wrapper around ``make_convert_fn``."""
     return make_convert_fn(gen)(mel)
+
+
+def layer_summary(since_ns: int) -> str:
+    """The median ms an utterance of the ``utterance``, ``convert`` and
+    ``decode`` spans that started after ``since_ns`` (a layer's spans of one
+    utterance summed: decode runs once per wav written)."""
+    per: Dict[str, Dict[int, float]] = {k: {} for k in ("utterance", "convert", "decode")}
+    for sp in profiler.spans():
+        if sp.name in per and sp.start_ns >= since_ns:
+            per[sp.name][sp.request] = per[sp.name].get(sp.request, 0.0) + sp.seconds
+    parts = [f"{k} {1e3 * float(np.median(list(v.values()))):.3f}"
+             for k, v in per.items() if v]
+    n = len(per["utterance"])
+    return f"ms an utterance, median of {n}: " + ", ".join(parts)
 
 
 def print_options(args) -> str:
@@ -180,32 +202,35 @@ def main(argv=None) -> None:
     os.makedirs(out_dir, exist_ok=True)
     convert = make_convert_fn(gen)
     mcds, msds, mcd_wavs, f0_conv = [], [], [], []
+    loop_ns = time.time_ns()
     for i, mel in enumerate(src_mels):
-        fake = convert(mel)
-        paired = args.compute_mcd and i < len(tgt_mels)
-        if args.compute_mcd:
-            f0_conv.append(utterance_f0(fake, tgt_mean, tgt_std))
-        if paired:
-            # In the vocoder's scale, the denormalized log10-mel.
-            fake_db = fake * tgt_std + tgt_mean
-            tgt_db = tgt_mels[i] * tgt_std + tgt_mean
-            m, path = mcd_dtw(fake_db, tgt_db)
-            mcds.append(m)
-            msds.append(mel_spectral_distance(fake_db, tgt_db, path))
-        stem_c = os.path.join(out_dir, f"{i}-converted_{src_id}_to_{tgt_id}")
-        stem_o = os.path.join(out_dir, f"{i}-original_{src_id}_to_{tgt_id}")
-        if decode is None:
-            np.save(stem_c + ".npy", fake)
-            np.save(stem_o + ".npy", mel)
-            continue
-        # The conversion in the target's statistics, the original in the source's.
-        wav_c = decode(fake, tgt_mean, tgt_std)
-        write_wav(stem_c + ".wav", wav_c, args.sample_rate)
-        write_wav(stem_o + ".wav", decode(mel, src_mean, src_std), args.sample_rate)
-        if paired:
-            # Both sides through the same decoder, so its artifacts cancel.
-            tgt_wav = decode(tgt_mels[i], tgt_mean, tgt_std)
-            mcd_wavs.append(mcd_dtw_wav(wav_c, tgt_wav, sr=args.sample_rate)[0])
+        with profiler.span("utterance", request=i):
+            fake = convert(mel)
+            paired = args.compute_mcd and i < len(tgt_mels)
+            if args.compute_mcd:
+                f0_conv.append(utterance_f0(fake, tgt_mean, tgt_std))
+            if paired:
+                # In the vocoder's scale, the denormalized log10-mel.
+                fake_db = fake * tgt_std + tgt_mean
+                tgt_db = tgt_mels[i] * tgt_std + tgt_mean
+                m, path = mcd_dtw(fake_db, tgt_db)
+                mcds.append(m)
+                msds.append(mel_spectral_distance(fake_db, tgt_db, path))
+            stem_c = os.path.join(out_dir, f"{i}-converted_{src_id}_to_{tgt_id}")
+            stem_o = os.path.join(out_dir, f"{i}-original_{src_id}_to_{tgt_id}")
+            if decode is None:
+                np.save(stem_c + ".npy", fake)
+                np.save(stem_o + ".npy", mel)
+                continue
+            # The conversion in the target's statistics, the original in the source's.
+            wav_c = decode(fake, tgt_mean, tgt_std)
+            write_wav(stem_c + ".wav", wav_c, args.sample_rate)
+            write_wav(stem_o + ".wav", decode(mel, src_mean, src_std), args.sample_rate)
+            if paired:
+                # Both sides through the same decoder, so its artifacts cancel.
+                tgt_wav = decode(tgt_mels[i], tgt_mean, tgt_std)
+                mcd_wavs.append(mcd_dtw_wav(wav_c, tgt_wav, sr=args.sample_rate)[0])
+    print(layer_summary(loop_ns))
     print(f"wrote {len(src_mels)} conversions to {out_dir}")
     if mcds:
         # log-mel-DCT cepstra: a relative metric, not the paper's MCD.

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from maskcyclegan_vc_tpu_torch.obs import profiler
 from maskcyclegan_vc_tpu_torch.ops.melgan_stack import (
     DILATIONS,
     LRELU_SLOPE,
@@ -202,9 +203,13 @@ def load_vocoder(path: str, device) -> MelGANGenerator:
 @torch.inference_mode()
 def decode_mel(vocoder: MelGANGenerator, mel: torch.Tensor, mean, std) -> torch.Tensor:
     """Denormalize (mel * std + mean, the reference's decode) and vocode:
-    (B, M, T) -> (B, T * 256)."""
+    (B, M, T) -> (B, T * 256). A ``decode`` span holding ``decode.h2d`` (the
+    mel, mean and std to the device) and ``decode.vocoder``."""
     dev = next(vocoder.parameters()).device
-    mel = torch.as_tensor(mel, dtype=torch.float32, device=dev)
-    mean = torch.as_tensor(np.asarray(mean, np.float32), device=dev)
-    std = torch.as_tensor(np.asarray(std, np.float32), device=dev)
-    return vocoder(mel * std + mean)
+    with profiler.span("decode"):
+        with profiler.span("decode.h2d"):
+            mel = torch.as_tensor(mel, dtype=torch.float32, device=dev)
+            mean = torch.as_tensor(np.asarray(mean, np.float32), device=dev)
+            std = torch.as_tensor(np.asarray(std, np.float32), device=dev)
+        with profiler.span("decode.vocoder"):
+            return vocoder(mel * std + mean)

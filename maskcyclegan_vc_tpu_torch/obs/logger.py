@@ -67,6 +67,7 @@ class TrainLogger:
         self.tb = None
         self._t_iter = time.time()
         self._buffer = []  # (batch_size, {name: value}) per step
+        self._step_s = []  # the window's steps' seconds, where the caller gives them
         if not self.active:
             return
         self.run_dir = os.path.join(save_dir, name)
@@ -102,16 +103,25 @@ class TrainLogger:
         self._buffer.clear()
 
     def log_iter(self, step: int, epoch: int, metrics: Dict[str, object],
-                 batch_size: int = 1) -> None:
+                 batch_size: int = 1, seconds: Optional[float] = None) -> None:
         """Buffer one step's metrics; every ``steps_per_print`` steps read the
-        window from the device, print its averages and write them."""
+        window from the device, print its averages and write them. The
+        window's ``ms/it`` is the mean of its steps' ``seconds`` where the
+        caller gives them (metrics that arrive in a burst), else the wall
+        time since the last print over ``steps_per_print``."""
         if not self.active:
             return
         self._buffer.append((batch_size, metrics))
+        if seconds is not None:
+            self._step_s.append(seconds)
         if step % self.steps_per_print or step <= 0:
             return
         self._drain()
-        dt = (time.time() - self._t_iter) / max(1, self.steps_per_print)
+        if self._step_s:
+            dt = sum(self._step_s) / len(self._step_s)
+        else:
+            dt = (time.time() - self._t_iter) / max(1, self.steps_per_print)
+        self._step_s.clear()
         self._t_iter = time.time()
         self.write(" ".join([f"[epoch {epoch} step {step}]"]
                             + [f"{k}: {m.avg:.5f}" for k, m in sorted(self.meters.items())]

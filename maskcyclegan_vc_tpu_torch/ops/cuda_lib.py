@@ -5,7 +5,9 @@ compiles in seconds) and builds on its own, for ``sm_90a``, into
 ``build/kernels/<name>-<digest>.so`` beside the package. The digest covers
 the source and the flags, so an edited source builds anew and an unchanged
 one loads what an earlier process built. Nothing is built at import: a
-library builds at its first launch, or earlier through ``build``.
+library builds at its first launch, or earlier through ``build``. Each
+first load in a process is a ``kernels.load`` span, and each nvcc run adds
+one to the ``kernels.built`` counter (``obs/profiler.py``).
 
 Every C entry point returns a ``cudaError_t`` from ``cudaGetLastError()``
 right after its launch; ``CudaKernel`` raises if it is not 0, so a launch the
@@ -22,6 +24,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
+
+from maskcyclegan_vc_tpu_torch.obs import profiler
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -71,6 +75,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
                        log, tmp, out)
+    profiler.count("kernels.built", len(procs))
     logs, failed = {}, []
     for name, (proc, log, tmp, out) in procs.items():
         proc.wait()
@@ -90,10 +95,11 @@ def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
-        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
-        lib.kernel_error_string.argtypes = [INT]
-        lib.kernel_error_string.restype = ctypes.c_char_p
+        with profiler.span("kernels.load"):
+            build([name])
+            lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+            lib.kernel_error_string.argtypes = [INT]
+            lib.kernel_error_string.restype = ctypes.c_char_p
     return lib
 
 

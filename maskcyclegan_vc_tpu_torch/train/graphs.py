@@ -39,6 +39,13 @@ a collective raises, and nothing is replayed without it.
 the step once, though nothing runs then, and a replay counts nothing. A
 caller that wants the launches on the card counts each graph's launches at
 capture and multiplies them by its replays (``chip_smoke.py`` does).
+
+Spans (``obs/profiler.py``), each with the step as its request: ``run`` is
+a ``train.run`` span holding, for each step, ``train.inputs`` (the reseed
+and the learning-rate writes) and ``train.replay`` (in ``replay``) or
+``train.first_step`` (the eager step and the capture). Nothing synchronises
+inside ``run``, so on the card a ``train.run`` span is the host's time to
+issue its steps, not their device time.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from typing import Callable
 import torch
 
 from maskcyclegan_vc_tpu_torch.data.dataset import MelBank, sample_batch, step_seed
+from maskcyclegan_vc_tpu_torch.obs import profiler
 from maskcyclegan_vc_tpu_torch.train.schedules import identity_lambda
 from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, TrainState
 from maskcyclegan_vc_tpu_torch.train.step import LOGGED_METRICS
@@ -77,6 +85,7 @@ class StepRunner:
         self.generator = torch.Generator(device=self.device)
         self.graph = None    # (update, CUDAGraph, batch, metrics row) of the variant
         self.batch = None    # the last step's batch
+        self.step = None     # the step being run: the request of its spans
         self.replays = 0
 
     def _body(self, state: TrainState, update, lam_id: float):
@@ -95,14 +104,15 @@ class StepRunner:
             raise RuntimeError("--scan_epochs 1 on the card needs "
                                "torch.cuda.CUDAGraph.register_generator_state; "
                                "pass --scan_epochs 0")
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self.batch, out = self._body(state, update, lam_id)
-            row.copy_(out)
-        current.wait_stream(side)
-        self.graph = (update, *self.capture(state, update, lam_id, side))
+        with profiler.span("train.first_step", request=self.step):
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self.batch, out = self._body(state, update, lam_id)
+                row.copy_(out)
+            current.wait_stream(side)
+            self.graph = (update, *self.capture(state, update, lam_id, side))
 
     def capture(self, state: TrainState, update, lam_id: float, stream):
         """(graph, batch, metrics row) of the variant's step, captured on
@@ -120,27 +130,31 @@ class StepRunner:
         return graph, batch, out
 
     def replay(self, graph: torch.cuda.CUDAGraph) -> None:
-        graph.replay()
+        with profiler.span("train.replay", request=self.step):
+            graph.replay()
         self.replays += 1
 
     def run(self, state: TrainState, n_steps: int) -> torch.Tensor:
         """``n_steps`` steps from ``state.step``, the state updated in place;
         returns their logged metrics, (n_steps, len(LOGGED_METRICS)), on the
         device, in ``LOGGED_METRICS`` order."""
-        rows = torch.empty((n_steps, len(LOGGED_METRICS)), device=self.device)
-        sched = self.cfg.schedule
-        for j in range(n_steps):
-            update = self.update_for(state.step)
-            lam_id = identity_lambda(sched, state.step)
-            self.generator.manual_seed(step_seed(self.seed, state.step))
-            state.set_learning_rates(sched)
-            if self.device.type == "cpu":
-                self.batch, rows[j] = self._body(state, update, lam_id)
-            elif self.graph is not None and self.graph[0] is update:
-                self.replay(self.graph[1])
-                self.batch = self.graph[2]
-                rows[j] = self.graph[3]
-            else:
-                self._first_step(state, update, lam_id, rows[j])
-            state.step += 1
+        with profiler.span("train.run", request=state.step):
+            rows = torch.empty((n_steps, len(LOGGED_METRICS)), device=self.device)
+            sched = self.cfg.schedule
+            for j in range(n_steps):
+                self.step = state.step
+                update = self.update_for(state.step)
+                lam_id = identity_lambda(sched, state.step)
+                with profiler.span("train.inputs", request=state.step):
+                    self.generator.manual_seed(step_seed(self.seed, state.step))
+                    state.set_learning_rates(sched)
+                if self.device.type == "cpu":
+                    self.batch, rows[j] = self._body(state, update, lam_id)
+                elif self.graph is not None and self.graph[0] is update:
+                    self.replay(self.graph[1])
+                    self.batch = self.graph[2]
+                    rows[j] = self.graph[3]
+                else:
+                    self._first_step(state, update, lam_id, rows[j])
+                state.step += 1
         return rows

@@ -16,6 +16,7 @@ from typing import Dict, Optional
 import torch
 
 from maskcyclegan_vc_tpu_torch.models import Discriminator, Generator
+from maskcyclegan_vc_tpu_torch.obs import profiler
 from maskcyclegan_vc_tpu_torch.train.schedules import (
     ScheduleConfig,
     discriminator_lr,
@@ -117,16 +118,17 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, device="cpu",
     """Both generators and all four discriminators, torch's default init
     drawn from seeded CPU generators (seed, seed+1 for A2B, B2A; seed+2..5
     for A, B, A2, B2, as the JAX package seeds them), and both optimizers
-    (``make_optimizer``'s ``capturable``)."""
+    (``make_optimizer``'s ``capturable``); a ``train.create_state`` span."""
     device = torch.device(device)
     kw = dict(device=device, dtype=cfg.dtype, fused_norms=cfg.fused_norms)
-    g = {name: Generator(cfg.n_mels, cfg.residual_channels,
-                         generator=torch.Generator().manual_seed(seed + i), **kw)
-         for i, name in enumerate(G_NAMES)}
-    d = {name: Discriminator(cfg.residual_channels, cfg.include_dead_params,
-                             generator=torch.Generator().manual_seed(seed + 2 + i), **kw)
-         for i, name in enumerate(D_NAMES)}
-    state = TrainState(0, g, d, None, None)
-    state.g_opt = make_optimizer(cfg, state.g_params(), capturable)
-    state.d_opt = make_optimizer(cfg, state.d_params(), capturable)
+    with profiler.span("train.create_state"):
+        g = {name: Generator(cfg.n_mels, cfg.residual_channels,
+                             generator=torch.Generator().manual_seed(seed + i), **kw)
+             for i, name in enumerate(G_NAMES)}
+        d = {name: Discriminator(cfg.residual_channels, cfg.include_dead_params,
+                                 generator=torch.Generator().manual_seed(seed + 2 + i), **kw)
+             for i, name in enumerate(D_NAMES)}
+        state = TrainState(0, g, d, None, None)
+        state.g_opt = make_optimizer(cfg, state.g_params(), capturable)
+        state.d_opt = make_optimizer(cfg, state.d_params(), capturable)
     return state

@@ -39,13 +39,20 @@ and a failing epoch's per-step values are written to the log before the run
 stops; the error names the remedy, a rerun under ``nan_debug_mode``.
 However the loop ends, an in-flight checkpoint write is flushed and the
 logger closed.
+
+The log's timings come from the program's spans (``obs/profiler.py``):
+each epoch is a ``train.epoch`` span holding ``train.readback``,
+``train.plot`` and ``train.save``, and its line gives their ms; under
+``scan_epochs`` a step's ``ms/it`` is the epoch's ``train.run`` span plus
+its read-back over its steps (the metrics of a whole epoch reach the logger
+at once). After the first epoch one ``[setup]`` line gives the kernel
+loads, the state's creation and the first steps (``setup_line``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Optional
 
 import torch
@@ -69,6 +76,7 @@ from maskcyclegan_vc_tpu_torch.io.checkpoint import (
 )
 from maskcyclegan_vc_tpu_torch.io.jax_params import train_state_to_jax
 from maskcyclegan_vc_tpu_torch.models.melgan import decode_mel, load_vocoder
+from maskcyclegan_vc_tpu_torch.obs import profiler
 from maskcyclegan_vc_tpu_torch.obs.logger import TrainLogger, to_host
 from maskcyclegan_vc_tpu_torch.parallel.dist import local_batch_slice, rank, world_size
 from maskcyclegan_vc_tpu_torch.parallel.mesh import (
@@ -90,6 +98,20 @@ from maskcyclegan_vc_tpu_torch.utils.debug import check_finite, nan_debug_active
 from maskcyclegan_vc_tpu_torch.utils.device import allows_tf32, precision_scope, resolve_device
 
 DTYPES = {"auto": None, "float32": None, "bfloat16": torch.bfloat16}
+
+
+def setup_line() -> str:
+    """The process's set-up by phase, from its spans: the kernel libraries
+    loaded (and how many nvcc built), the train state's creation, and the
+    first steps of each variant (eager and captured; kernel loads they
+    triggered included)."""
+    totals, built = profiler.totals(), profiler.counters().get("kernels.built", 0)
+    n, s = totals.get("kernels.load", (0, 0.0))
+    parts = [f"kernels {n} loaded ({built} built by nvcc) in {s:.2f} s"]
+    for name, label in (("train.create_state", "state"), ("train.first_step", "first step")):
+        if name in totals:
+            parts.append(f"{label} {totals[name][1]:.2f} s")
+    return "[setup] " + "; ".join(parts)
 
 
 @dataclasses.dataclass
@@ -249,22 +271,37 @@ class Trainer:
     def _run(self) -> None:
         a = self.args
         for epoch in range(self.start_epoch, a.num_epochs + 1):
-            t0 = time.time()
             first = self.state.step + 1
-            if self._runner is not None and not nan_debug_active():
-                # The epoch's one read of the device.
-                vals = self._runner.run(self.state, self.steps_per_epoch).cpu().tolist()
-                rows = [dict(zip(LOGGED_METRICS, v)) for v in vals]
-                for i, row in enumerate(rows):
-                    self.logger.log_iter(first + i, epoch, row, batch_size=a.batch_size)
-            else:
-                rows = self._run_steps(epoch)
-            self._check_metrics_finite(rows, epoch, first)
-            if epoch % a.epochs_per_plot == 0:
-                self._plot(epoch)
-            if epoch % a.epochs_per_save == 0:
-                self._save(epoch)
-            self.logger.write(f"epoch {epoch} done in {time.time() - t0:.1f}s",
+            with profiler.span("train.epoch", request=epoch) as ep:
+                if self._runner is not None and not nan_debug_active():
+                    out = self._runner.run(self.state, self.steps_per_epoch)
+                    with profiler.span("train.readback") as back:
+                        vals = out.cpu().tolist()  # the epoch's one read of the device
+                    # A step's time: its share of issuing the span and waiting for it.
+                    step_s = ((profiler.last("train.run").seconds + back.seconds)
+                              / self.steps_per_epoch)
+                    rows = [dict(zip(LOGGED_METRICS, v)) for v in vals]
+                    for i, row in enumerate(rows):
+                        self.logger.log_iter(first + i, epoch, row, batch_size=a.batch_size,
+                                             seconds=step_s)
+                    self._check_metrics_finite(rows, epoch, first)
+                else:
+                    rows = self._run_steps(epoch)
+                    with profiler.span("train.readback") as back:
+                        self._check_metrics_finite(rows, epoch, first)
+                plot = save = None
+                if epoch % a.epochs_per_plot == 0:
+                    with profiler.span("train.plot") as plot:
+                        self._plot(epoch)
+                if epoch % a.epochs_per_save == 0:
+                    with profiler.span("train.save") as save:
+                        self._save(epoch)
+            if epoch == self.start_epoch:
+                self.logger.write(setup_line())
+            ms = {k: f"{1e3 * sp.seconds:.1f} ms" if sp else "none"
+                  for k, sp in (("read-back", back), ("plot", plot), ("save", save))}
+            self.logger.write(f"epoch {epoch} done in {ep.seconds:.1f}s ("
+                              + ", ".join(f"{k} {v}" for k, v in ms.items()) + ")",
                               console=False)
 
     def _run_steps(self, epoch: int):

@@ -25,9 +25,7 @@ the dispatcher cannot see them, so each wrapper hands the tensors a launch
 wrote to ``check_kernel_outputs``, which raises naming the kernel's C entry
 (``in_forward_bf16``, say) and costs one look at the thread's dispatch-mode
 stack outside the mode. Autograd carries that stack to the device thread on
-which it runs a CUDA backward, and so K5. ``kernel_launches_checked`` counts
-the launches whose outputs were checked, so that a run can show every
-launch was.
+which it runs a CUDA backward, and so K5.
 
 CUDA graphs hide the operations from the mode, as ``jit`` hides them from
 ``jax.debug_nans``: inside the mode the trainer runs a step at a time
@@ -51,10 +49,6 @@ UNINITIALISED = frozenset(
     getattr(torch.ops.aten, name) for name in
     ("empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
      "empty_permuted", "resize_") if hasattr(torch.ops.aten, name))
-
-# Kernel launches whose outputs check_kernel_outputs checked inside the mode.
-kernel_launches_checked = 0
-
 
 def _walk(node: Any, path: str, bad: List[str]) -> None:
     if isinstance(node, dict):
@@ -126,16 +120,14 @@ def nan_debug_active() -> bool:
 
 def check_kernel_outputs(symbol: str, *outputs) -> None:
     """Inside ``nan_debug_mode``: raise ``FloatingPointError`` naming the C
-    entry ``symbol`` if a tensor that one launch of it wrote holds a NaN,
-    and count the launch. Each output is a tensor, or a (part, tensor) pair
+    entry ``symbol`` if a tensor that one launch of it wrote holds a NaN.
+    Each output is a tensor, or a (part, tensor) pair
     naming the part of the launch that wrote it, checked in order. Outside
     the mode: nothing."""
     if not nan_debug_active():
         return
-    global kernel_launches_checked
     for out in outputs:
         part, t = out if isinstance(out, tuple) else ("", out)
         if _has_nan(t):
             raise FloatingPointError(f"NaN in the output of the CUDA kernel {symbol}"
                                      + (f" ({part})" if part else ""))
-    kernel_launches_checked += 1

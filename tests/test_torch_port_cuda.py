@@ -1552,21 +1552,29 @@ def _launches_of_all_entries():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_nan_debug_mode_checks_every_kernel_launch(device, dtype):
+def test_nan_debug_mode_checks_every_kernel_launch(device, dtype, monkeypatch):
     """Every entry of K1-K9 on finite input under the mode: no raise, one
     checked output per launch, and the outputs of the run outside the mode,
     bit for bit."""
     from maskcyclegan_vc_tpu_torch.utils import debug
 
+    checked, real_check = [], debug.check_kernel_outputs
+
+    def check(symbol, *outputs):
+        if debug.nan_debug_active():
+            checked.append(symbol)
+        real_check(symbol, *outputs)
+
+    monkeypatch.setattr(debug, "check_kernel_outputs", check)
     for name, call in _kernel_calls(device, dtype).items():
         with torch.inference_mode(name.startswith("K9") or name == "K8"):
             outside = call()
-        launches, checked = _launches_of_all_entries(), debug.kernel_launches_checked
+        launches, before = _launches_of_all_entries(), len(checked)
         with debug.nan_debug_mode(), torch.inference_mode(name.startswith("K9") or name == "K8"):
             inside = call()
         torch.cuda.synchronize()
         n = _launches_of_all_entries() - launches
-        assert n >= 1 and debug.kernel_launches_checked - checked == n, name
+        assert n >= 1 and len(checked) - before == n, name
         assert torch.equal(inside, outside), name
 
 

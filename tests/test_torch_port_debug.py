@@ -117,12 +117,9 @@ def test_empty_inside_the_mode_never_raises():
 
 def test_kernel_output_check_names_the_entry_inside_and_does_nothing_outside():
     bad, good = torch.tensor([1.0, float("nan")]), torch.ones(2)
-    before = debug.kernel_launches_checked
-    check_kernel_outputs("in_forward_bf16", bad)  # outside: no check, no count
-    assert debug.kernel_launches_checked == before
+    check_kernel_outputs("in_forward_bf16", bad)  # outside: no check
     with nan_debug_mode():
         check_kernel_outputs("in_forward_bf16", good, good)
-        assert debug.kernel_launches_checked == before + 1
         with pytest.raises(FloatingPointError, match="CUDA kernel in_forward_bf16$"):
             check_kernel_outputs("in_forward_bf16", good, bad)
         with pytest.raises(FloatingPointError, match=r"melgan_resstack_forward \(block 2 of 3\)"):
@@ -130,7 +127,6 @@ def test_kernel_output_check_names_the_entry_inside_and_does_nothing_outside():
                                  ("block 2 of 3", bad), ("block 3 of 3", bad))
         # An infinity is no NaN.
         check_kernel_outputs("log_mel_forward", torch.tensor([-float("inf")]))
-    assert debug.kernel_launches_checked == before + 2
     assert not debug.nan_debug_active()
 
 
