@@ -43,8 +43,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               a step at a time and as graph replays (with the device-busy
               share of each, and the replays' batches held bit for bit
               against the eager sampler's), each step's launch counts and
-              K1's, K2's, K3's and K4's routes (all bulk-copied), peak memory
-              and a profiler breakdown.
+              K1's, K2's, K3's and K4's routes and those of K1-K3's backwards
+              (all bulk-copied; a backward for each K1-K3 forward with grad,
+              and no plain K1-K3 backward on the card), peak memory and a
+              profiler breakdown.
 7. train bf16 the same CLI run as 6 with --dtype bfloat16: launches per
               replayed step on the bf16 entries of K1-K5 only (the plot's
               two conversions stay f32), losses within 0.15 relative of 6's
@@ -115,7 +117,11 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               431-frame conversion (unmasked and with the call's lengths) and
               in one training step at each size (unmasked and with lengths
               one frame short), the fused backward also against autograd, K1,
-              K2, K3 and K4 with the route each site takes; K6
+              K2, K3 and K4 with the route each site takes; K1-K3's backwards
+              (in_backward_kernel) at every backward site of those steps
+              against their plain formulas, with their routes, their bounds
+              (x and dy read, dx written, the vectors and the (B, C)
+              partials, over 3.35 TB/s) and launches a step; K6
               and K7 (exact, on the vector route) at every inverse-shuffle
               site of the 1 x 320 step; the bf16 entries of K1-K7 likewise at the sites of the
               bf16 steps; K8 on the audio of every bucket the preprocess
@@ -227,13 +233,17 @@ G_FORWARDS = {1: (6, 3, 8), 32: (10, 6, 12)}  # G forwards, of them with grad, D
 
 def per_step(batch: int, frames: int, dtype=torch.float32) -> dict:
     """The launches of one training step at the published width, by entry.
-    Each upsample backward takes K5 where its stage's per-sample block is
+    Each K1, K2 and K3 forward with grad (every discriminator forward, the
+    generator forwards with grad) launches its backward once. Each
+    upsample backward takes K5 where its stage's per-sample block is
     within the budget, else the split route (one K6), as
     ``pixel_shuffle_in_swish_backward_bytes`` decides at ``dtype``: in f32
     at 64 and 128 frames both stages take K5, at 192 upSample2 splits, at
     320 both split; in bf16, whose bytes are half, at 320 only upSample2."""
     n_g, n_grad, n_d = G_FORWARDS[batch]
-    out = {"in_glu": 8 * n_g, "in": 8 * n_g, "in_swish": 3 * n_d, "ps_in_swish": 2 * n_g}
+    out = {"in_glu": 8 * n_g, "in": 8 * n_g, "in_swish": 3 * n_d, "ps_in_swish": 2 * n_g,
+           # each K1, K2 and K3 launch that records a gradient: one backward
+           "in_glu_bwd": 8 * n_grad, "in_bwd": 8 * n_grad, "in_swish_bwd": 3 * n_d}
     w2 = -(-(-(-frames // 2)) // 2)
     for shape in ((1, 1024, 20, w2), (1, 512, 40, 2 * w2)):  # upSample1, upSample2 inputs
         x = torch.empty(shape, dtype=dtype, device="meta")
@@ -317,7 +327,8 @@ def recording_sites():
     """Record every kernel launch made inside the block as a Site: the
     wrappers' launch points are wrapped for its duration, so the sites are
     the ones the real call graph produces. A site's kernel is the entry of
-    its input's dtype ("in" or "in_bf16")."""
+    its input's dtype ("in" or "in_bf16"). A plain K1-K3 backward on a
+    CUDA tensor inside the block raises."""
     sites = {}
 
     def record(kernel, x, lengths):
@@ -328,11 +339,23 @@ def recording_sites():
 
     launch_rows, forward, backward = (in_gate._launch_rows, ps._forward,
                                       ps.pixel_shuffle_in_swish_backward)
-    launch_shuffle = ps._launch_shuffle
+    launch_shuffle, launch_row_backward = ps._launch_shuffle, in_gate._launch_backward
+    normalized = in_gate._normalized
 
     def rec_launch_rows(kernel, x, vecs, lengths, out_channels):
         record(kernel, x, lengths)
         return launch_rows(kernel, x, vecs, lengths, out_channels)
+
+    def rec_launch_row_backward(kernel, x, dy, vecs):
+        record(f"{kernel}_bwd", x, None)
+        return launch_row_backward(kernel, x, dy, vecs)
+
+    def rec_normalized(x):
+        # The plain K1-K3 backwards start here: none may run on the card.
+        if x.device.type == "cuda":
+            raise AssertionError(f"a plain InstanceNorm backward ran on the card at "
+                                 f"{tuple(x.shape)} {x.dtype}")
+        return normalized(x)
 
     def rec_forward(x, scale, bias, lengths=None, stats=False):
         record("ps_in_swish", x, lengths)
@@ -347,12 +370,14 @@ def recording_sites():
         return launch_shuffle(kernel, src)
 
     in_gate._launch_rows, ps._forward = rec_launch_rows, rec_forward
+    in_gate._launch_backward, in_gate._normalized = rec_launch_row_backward, rec_normalized
     ps.pixel_shuffle_in_swish_backward = rec_backward
     ps._launch_shuffle = rec_launch_shuffle
     try:
         yield sites
     finally:
         in_gate._launch_rows, ps._forward = launch_rows, forward
+        in_gate._launch_backward, in_gate._normalized = launch_row_backward, normalized
         ps.pixel_shuffle_in_swish_backward = backward
         ps._launch_shuffle = launch_shuffle
 
@@ -444,6 +469,32 @@ KERNELS = {
         replaces="maskcyclegan_vc_tpu/ops/pallas/ps_kernel.py:259 (_sis_bwd_pallas, backward of subpixel_in_swish :386)",
         # per element: z 2, sigmoid 4, dz 5, two sums 3, xhat 2, dx 4
         flops_per_out=20),
+    # K1's, K2's and K3's backwards (in_backward_kernel): the gradients at x
+    # of the saved forward input, from dy. Per element of dx: statistics 4,
+    # the sums 4, dx 5, and dz twice (K3: z 2, sigmoid 4, dz 5; K1 per
+    # element of the pair: half of the gate's z 2, sigmoid 4, dz 6).
+    "in_glu_bwd": dict(
+        counter=in_gate.ENTRIES["in_glu_bwd"][torch.float32],
+        fn=in_gate.instance_norm_glu_backward, plain=in_gate.instance_norm_glu_backward_plain,
+        library=None, n_vecs=4, source="maskcyclegan_vc_tpu_torch/csrc/in_gate.cu",
+        replaces="no Pallas kernel: the custom_vjp backward of instance_norm_glu_fused "
+                 "(maskcyclegan_vc_tpu/ops/pallas/in_gate_kernel.py:226-258, XLA)",
+        flops_per_out=25),
+    "in_bwd": dict(
+        counter=in_gate.ENTRIES["in_bwd"][torch.float32],
+        fn=in_gate.instance_norm_backward, plain=in_gate.instance_norm_backward_plain,
+        library=None, n_vecs=2, source="maskcyclegan_vc_tpu_torch/csrc/in_gate.cu",
+        replaces="no Pallas kernel: the custom_vjp backward of instance_norm_fused "
+                 "(maskcyclegan_vc_tpu/ops/pallas/in_gate_kernel.py:161-174, XLA)",
+        flops_per_out=13),
+    "in_swish_bwd": dict(
+        counter=in_gate.ENTRIES["in_swish_bwd"][torch.float32],
+        fn=in_gate.instance_norm_swish_backward,
+        plain=in_gate.instance_norm_swish_backward_plain,
+        library=None, n_vecs=2, source="maskcyclegan_vc_tpu_torch/csrc/in_gate.cu",
+        replaces="no Pallas kernel: the custom_vjp backward of instance_norm_swish_fused "
+                 "(maskcyclegan_vc_tpu/ops/pallas/in_gate_kernel.py:191-207, XLA)",
+        flops_per_out=35),
     # The shuffles: measured by measure_shuffles, at the K6 sites.
     "inv_shuffle": dict(
         counter=ps.INV_SHUFFLE_KERNEL, fn=ps.inverse_pixel_shuffle,
@@ -472,7 +523,9 @@ for _name, _entries in (*in_gate.ENTRIES.items(), *ps.ENTRIES.items()):
                                     dtype=torch.bfloat16)
 KERNELS["melgan_stack_bf16"] = dict(KERNELS["melgan_stack"], dtype=torch.bfloat16,
                                    counter=melgan_stack.ENTRIES[torch.bfloat16])
-NORM_KERNELS = ("in_glu", "in", "in_swish", "ps_in_swish", "ps_in_swish_bwd")
+NORM_KERNELS = ("in_glu", "in", "in_swish", "ps_in_swish", "ps_in_swish_bwd", "in_glu_bwd",
+                "in_bwd", "in_swish_bwd")
+ROW_BACKWARDS = ("in_glu_bwd", "in_bwd", "in_swish_bwd")
 
 
 def dtype_of(kernel: str) -> torch.dtype:
@@ -497,13 +550,21 @@ def bound_ms(kernel: str, shape: tuple, n_vecs: int):
     bf16 entries compute in f32 too). x, y, dy and dx take the entry's
     element size (2 bytes in bf16), the vectors and statistics 4. The fused
     backward reads x and dy and writes dx (three tensors of x's size) plus
-    the per-sample statistics in and dscale, dbias out."""
+    the per-sample statistics in and dscale, dbias out; K1-K3's backwards
+    read x and dy (K1's dy half x's size) and write dx, plus the vectors in
+    and each row's dscale and dbias partials out."""
     n_in = int(np.prod(shape))
     C = out_shape(kernel, shape)[1]
     esize = torch.finfo(dtype_of(kernel)).bits // 8
     if base_name(kernel) == "ps_in_swish_bwd":
         n_out, C = n_in, C // 4
         nbytes = esize * 3 * n_in + 4 * (n_vecs * C + 4 * shape[0] * C)
+    elif base_name(kernel) in ROW_BACKWARDS:
+        # x and dy read, dx written; the vectors, and each row's dscale and
+        # dbias partials written in f32.
+        arrays = n_vecs // 2
+        n_out, C = n_in, C // arrays
+        nbytes = esize * (2 * n_in + n_in // arrays) + 4 * (n_vecs * C + 2 * arrays * shape[0] * C)
     else:
         n_out = int(np.prod(out_shape(kernel, shape)))
         nbytes = esize * (n_in + n_out) + 4 * n_vecs * C
@@ -560,6 +621,8 @@ def _inputs(site: Site, device, gen):
     C = out_shape(site.kernel, site.shape)[1]
     if base_name(site.kernel) == "ps_in_swish_bwd":
         C = site.shape[1] // 4
+    elif base_name(site.kernel) in ROW_BACKWARDS:
+        C = site.shape[1] // (spec["n_vecs"] // 2)
     x = (torch.randn(site.shape, device=device, generator=gen) * 2.0 + 0.5).to(
         dtype_of(site.kernel))
     vecs = []
@@ -660,6 +723,57 @@ def check_backward(site: Site, x, vecs, device, gen):
     return err, worst, (x, dy, s, b, mean, inv)
 
 
+def row_backward_bound(kernel: str, x, dy, vecs) -> list:
+    """1e-5 of sum |dz| (1 + |xhat|) per channel, for each (dscale, dbias)
+    output of K1's, K2's or K3's backward: each row's sums leave the
+    kernel as partials summed again over the batch, in another order than
+    the plain formulas'."""
+    arrays = len(vecs) // 2
+    xs = x.float().reshape(x.shape[0], x.shape[1], -1)
+    hat = (xs - xs.mean(-1, keepdim=True)) * torch.rsqrt(
+        xs.var(-1, unbiased=False, keepdim=True) + 1e-5)
+    d = dy.float().reshape(dy.shape[0], dy.shape[1], -1)
+    hats = hat.split(d.shape[1], dim=1)
+    z = [hats[a] * vecs[2 * a][:, None] + vecs[2 * a + 1][:, None] for a in range(arrays)]
+    if base_name(kernel) == "in_bwd":
+        dz = [d]
+    elif base_name(kernel) == "in_swish_bwd":
+        sg = torch.sigmoid(z[0])
+        dz = [d * (sg + z[0] * sg * (1 - sg))]
+    else:
+        sg = torch.sigmoid(z[1])
+        dz = [d * sg, d * z[0] * sg * (1 - sg)]
+    return [1e-5 * (dz[a].abs() * (1 + hats[a].abs())).sum((0, 2)) for a in range(arrays)
+            for _ in range(2)]
+
+
+def check_row_backward(site: Site, x, vecs, device, gen):
+    """K1's, K2's or K3's backward against its plain formulas on a seeded
+    dy: dx at TOL in f32, one bf16 rounding in bf16; dscale and dbias
+    within ``row_backward_bound``. Returns the worst dx error, the worst
+    share of the summation bound and the call's arguments."""
+    spec = KERNELS[site.kernel]
+    C = x.shape[1] // (spec["n_vecs"] // 2)
+    dy = torch.randn((x.shape[0], C) + x.shape[2:], device=device, generator=gen).to(x.dtype)
+    got = spec["fn"](x, dy, *vecs)
+    want = spec["plain"](x, dy, *vecs)
+    torch.cuda.synchronize()
+    tol = TOL_BF16 if x.dtype == torch.bfloat16 else TOL
+    if got[0].dtype != x.dtype or want[0].dtype != x.dtype:
+        raise AssertionError(f"{site.kernel} dx {got[0].dtype}, plain {want[0].dtype}")
+    err = (got[0].float() - want[0].float()).abs().max().item()
+    if not torch.allclose(got[0].float(), want[0].float(), **tol):
+        raise AssertionError(f"{site.kernel} dx at {site.shape}: max abs err {err:.3g} > {tol}")
+    worst = 0.0
+    for g, w, bound in zip(got[1:], want[1:], row_backward_bound(site.kernel, x, dy, vecs)):
+        ratio = ((g - w).abs() / bound).max().item()
+        if not ratio <= 1.0:
+            raise AssertionError(f"{site.kernel} dscale/dbias at {site.shape}: {ratio:.3g} of "
+                                 f"the summation bound")
+        worst = max(worst, ratio)
+    return err, worst, (x, dy, *vecs)
+
+
 def measure_sites(sites, device, label: str):
     """Check and time every recorded site; returns per-kernel sums (each
     site's time times its count)."""
@@ -675,6 +789,16 @@ def measure_sites(sites, device, label: str):
             ms = device_ms(lambda: ps.pixel_shuffle_in_swish_backward(*args), reps)
             plain_ms = device_ms(lambda: ps.pixel_shuffle_in_swish_backward_plain(*args), reps)
             eager_ms = call_ms(lambda: ps.pixel_shuffle_in_swish_backward(*args))
+            lib_ms = None
+            extra = f"dscale/dbias at {ratio:.3g} of their summation bound "
+        elif base_name(site.kernel) in ROW_BACKWARDS:
+            before = route_counts()
+            err, ratio, args = check_row_backward(site, x, vecs, device, gen)
+            taken = sorted({k.split("/")[1] for k, n in route_counts().items()
+                            if k.split("/")[0] == site.kernel and n > before.get(k, 0)})
+            ms = device_ms(lambda: spec["fn"](*args), reps)
+            plain_ms = device_ms(lambda: spec["plain"](*args), reps)
+            eager_ms = call_ms(lambda: spec["fn"](*args))
             lib_ms = None
             extra = f"dscale/dbias at {ratio:.3g} of their summation bound "
         else:
@@ -693,7 +817,8 @@ def measure_sites(sites, device, label: str):
         if base_name(site.kernel) in ROUTED:
             masked += f"route {' '.join(taken)} "
         tol = ("atol=rtol=1e-5" if x.dtype == torch.float32 else
-               "one bf16 rounding" if ms_masked is not None else "two bf16 roundings")
+               "two bf16 roundings" if base_name(site.kernel) == "ps_in_swish_bwd"
+               else "one bf16 rounding")
         print(f"kernels: {label} {site.kernel:20s} in {str(site.shape):22s} {masked}"
               f"x{site.count} max_abs_err {err:.3g} (tol {tol}) {extra}"
               f"ms {ms:.5f} "
@@ -842,10 +967,10 @@ def profile(fn, wall_s: float, what: str):
         "collectives (NCCL)": COLLECTIVE_KERNELS,
     }
     sums = {g: [0.0, 0] for g in groups}
-    sums["other (eager IN backwards, losses, copies, elementwise)"] = [0.0, 0]
+    sums["other (losses, casts, copies, elementwise)"] = [0.0, 0]
     for key, count, us in rows:
         g = next((g for g, pat in groups.items() if re.search(pat, key)),
-                 "other (eager IN backwards, losses, copies, elementwise)")
+                 "other (losses, casts, copies, elementwise)")
         sums[g][0] += us
         sums[g][1] += count
     print(f"profile: {what}: device busy {busy_us / 1e3:.3f} ms of {1e3 * wall_s:.3f} ms "
@@ -863,12 +988,11 @@ def profile(fn, wall_s: float, what: str):
 # The audio path: preprocessing (K8) and decoding (K9)
 # ---------------------------------------------------------------------------
 
-# The kernels whose C entry reports a route (K1, K2, K3, K4, K6, K7), and
-# their route counters by dtype. K5 has one route: its launches are its
-# count. MAIN_ROUTE: the route every main-path launch must take (K6 and
-# K7: 16-byte units, "vector"; the others: "bulk").
-ROUTED = {"in_glu": in_gate.ROUTES["in_glu"], "in": in_gate.ROUTES["in"],
-          "in_swish": in_gate.ROUTES["in_swish"], "ps_in_swish": ps.ROUTES,
+# The kernels whose C entry reports a route (K1, K2, K3 and their
+# backwards, K4, K6, K7), and their route counters by dtype. K5 has one
+# route: its launches are its count. MAIN_ROUTE: the route every main-path
+# launch must take (K6 and K7: 16-byte units, "vector"; the others: "bulk").
+ROUTED = {**in_gate.ROUTES, "ps_in_swish": ps.ROUTES,
           "inv_shuffle": ps.SHUFFLE_ROUTES["inv_shuffle"],
           "shuffle": ps.SHUFFLE_ROUTES["shuffle"]}
 MAIN_ROUTE = {"inv_shuffle": "vector", "shuffle": "vector"}
@@ -2640,9 +2764,10 @@ def main() -> int:
              "melgan_stack_bf16": (measure_resstack(bf16_stage_calls, device), eval_launches)}
     took("kernels")
 
-    # K1-K5, f32 then bf16: launches, the main path's CLI run (phase_train,
-    # phase_train_bf16); ms, plain_ms, library_ms and bound_ms summed over
-    # one 1 x 64 step's sites, with the 32 x 128 step's beside them.
+    # K1-K5 and K1-K3's backwards, f32 then bf16: launches, the main path's
+    # CLI run (phase_train, phase_train_bf16); ms, plain_ms, library_ms and
+    # bound_ms summed over one 1 x 64 step's sites, with the 32 x 128 step's
+    # beside them.
     kernels = []
     for k in (*NORM_KERNELS, *(f"{k}_bf16" for k in NORM_KERNELS)):
         spec, r = KERNELS[k], step1[k]

@@ -8,8 +8,15 @@
 //   in_glu_forward   <- instance_norm_glu_fused   (:214, body _in_glu_kernel   :101)
 // and, with `lengths`, the masked XLA InstanceNorm that the JAX generator
 // and discriminator run at the same call sites on padded inputs
-// (ops/layers.py:204-215 and :270-278). Forward only: the backwards are
-// the JAX package's XLA formulas, written in PyTorch (ops/in_gate.py).
+// (ops/layers.py:204-215 and :270-278).
+//
+// The backward entries (in_backward, in_swish_backward, in_glu_backward)
+// replace no Pallas kernel: they replace the jax.custom_vjp backwards of
+// the three entries (in_gate_kernel.py:161-258), which XLA fuses on the
+// TPU and which PyTorch ran as chains of eager ops, each recomputing the
+// statistics and making about ten f32 temporaries the size of x. Those
+// chains moved about 83 % of the bytes of a training step's eager ops. The
+// plain formulas stay in ops/in_gate.py, as the CPU path and the oracle.
 //
 // Each entry has an f32 form and a bf16 form (the `_bf16` entries), as the
 // Pallas kernels take x in either dtype (in_gate_kernel.py:66-114): x and y
@@ -68,6 +75,28 @@
 //   an f32 K1 row of more than 28,928 elements (its h and g rows together;
 //   a conversion bucket past about 1446 frames), or an f32 K2 or K3 row of
 //   more than 57,856. The entry reports the route it launched.
+//
+// The backwards run in_backward_kernel, one template with the same three
+// epilogues, on the same plan. Given x (the forward's input, saved) and dy
+// (the gradient of y), a row's gradient is
+//   dx = scale * inv * (dz - mean(dz) - xhat * mean(dz * xhat)),
+// with dz the gradient at the normalised value: dy for K2, dy * swish'(z)
+// for K3, and for K1, with s = sigmoid(IN(g)), dy * s at h and
+// dy * IN(h) * s * (1 - s) at g. Its bound is bytes too: x and dy read once
+// and dx written once, 12 bytes an element in f32 and 6 in bf16 (K1: 10 and
+// 5 an element of x, its dy half x's size), plus the vectors and a (B, C)
+// pair of partials an array.
+// - The block stages its x rows (K1: h and g) and its dy rows in one bulk
+//   copy each, as the forward stages x; a row of x and dy past a block's
+//   shared memory streams from device memory. DRAM is read once.
+// - From shared memory, in f32: the mean, the centred variance (as the
+//   forward), then dz on the fly and the row's sum(dz) and
+//   sum(dz * (x - mean)) in one reduction (K1: h's and g's together), then
+//   dz again and dx, rounded once to x's dtype and written once. K1 writes
+//   dh and dg into one (B, 2C, S) tensor, as hg came in.
+// - dscale and dbias leave as per-row partials, sum(dz * xhat) and sum(dz),
+//   in a (2A, B, C) f32 array that the caller sums over B in a fixed order:
+//   no atomics, so a CUDA graph's replays give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -414,6 +443,172 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// The gradient at the normalised value(s) of one element whose dy is d,
+// from its centred values ch = xh - mean (and cg, K1's g): K2 d; K3
+// d * swish'(z), z = ch * ah + bh; K1, with the gate s = sigmoid(cg * ag +
+// bg), d * s at h and d * (ch * ah + bh) * s * (1 - s) at g (dzg). ah =
+// inv * scale and bh the bias: z from the centred value, as the plain
+// formulas' xhat * scale + bias, keeps a row of small variance (inv up to
+// 1 / sqrt(eps)) clear of the cancellation in x * ah + (bias - mean * ah).
+// Each operation is rounded as written (the _rn intrinsics, which the
+// compiler does not fuse with what consumes them), so the sums' pass and
+// dx's pass see the same dz to the bit: a one-element row's dx is then
+// exactly 0, as the plain formulas give it, and not rounding noise times
+// inv.
+template <int kEpilogue>
+__device__ __forceinline__ float grad_z(float ch, float cg, float d, float ah, float bh,
+                                        float ag, float bg, float& dzg) {
+  if constexpr (kEpilogue == kNone) {
+    return d;
+  } else if constexpr (kEpilogue == kSwish) {
+    const float z = __fmaf_rn(ch, ah, bh), s = sigmoid(z);
+    return __fmul_rn(d, __fmaf_rn(__fmul_rn(z, s), __fsub_rn(1.f, s), s));
+  } else {
+    const float s = sigmoid(__fmaf_rn(cg, ag, bg)), yh = __fmaf_rn(ch, ah, bh);
+    dzg = __fmul_rn(__fmul_rn(__fmul_rn(d, yh), s), __fsub_rn(1.f, s));
+    return __fmul_rn(d, s);
+  }
+}
+
+// The backward of one block: rows c0 .. c0 + R - 1 (those below C) of
+// sample b, as in in_staged_kernel. x and dx are (B, A*C, S), dy is
+// (B, C, S); part is (2A, B, C) f32: array a's sum(dz * xhat) at part[2a]
+// and its sum(dz) at part[2a + 1]. K2 reads no bias.
+template <typename T, int kEpilogue, bool kStream, bool kVec>
+__global__ void __launch_bounds__(kMaxThreads)
+    in_backward_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                       const float* __restrict__ scale_h, const float* __restrict__ bias_h,
+                       const float* __restrict__ scale_g, const float* __restrict__ bias_g,
+                       T* __restrict__ dx, float* __restrict__ part, int B, int C, int H,
+                       int W, int gt) {
+  constexpr bool kGated = kEpilogue == kGlu;
+  constexpr int A = kGated ? 2 : 1;  // arrays of x: h, and g for the GLU
+  constexpr int V = Elem<T>::V;
+  extern __shared__ __align__(128) unsigned char dyn[];
+  __shared__ __align__(8) uint64_t bar;
+  // The sums of dz take red[0, 2A) x 32, over the means' red[0, A) x 32:
+  // every thread has read the means before any passes the variance's
+  // barrier. The variance takes red[2A, 3A) x 32.
+  __shared__ float red[3 * A * 32];
+  const int S = H * W;
+  const int R = blockDim.x / gt;
+  const int groups = (C + R - 1) / R;  // blocks a sample
+  const int b = blockIdx.x / groups;
+  const int c0 = (blockIdx.x - b * groups) * R;
+  const int rows = min(R, C - c0);
+  const int j = threadIdx.x / gt, t = threadIdx.x - j * gt;
+  const bool live = j < rows;  // an idle group still joins the reductions
+  const int c = c0 + j;
+
+  const T* src[A + 1];  // x's runs (h, g), then dy's
+  src[0] = x + ((size_t)b * A * C + c0) * S;
+  if constexpr (kGated) src[1] = src[0] + (size_t)C * S;
+  src[A] = dy + ((size_t)b * C + c0) * S;
+  const T* run[A + 1];
+  if constexpr (kStream) {
+#pragma unroll
+    for (int a = 0; a <= A; ++a) run[a] = src[a];
+  } else {
+    stage<A + 1>(dyn, src, rows * S, run, &bar);
+  }
+  const T* row[A];
+#pragma unroll
+  for (int a = 0; a < A; ++a) row[a] = run[a] + (size_t)j * S;
+  const T* dyr = run[A] + (size_t)j * S;
+
+  const int nW = (W + V - 1) / V, nU = H * nW;
+  const float inv_n = 1.f / (float)S;
+  const Walk start(t, gt, nW);
+
+  float zero[A], m[A], q[A];
+#pragma unroll
+  for (int a = 0; a < A; ++a) zero[a] = m[a] = q[a] = 0.f;
+  if (live) unit_sums<kVec, false>(row, start, t, gt, nU, nW, W, W, zero, m);
+  group_sum(m, gt, red);
+#pragma unroll
+  for (int a = 0; a < A; ++a) m[a] *= inv_n;
+  if (live) unit_sums<kVec, true>(row, start, t, gt, nU, nW, W, W, m, q);
+  group_sum(q, gt, red + 2 * A * 32);
+
+  float inv[A];
+#pragma unroll
+  for (int a = 0; a < A; ++a) inv[a] = rsqrtf(q[a] * inv_n + kEps);
+  float ah = 0.f, bh = 0.f, ag = 0.f, bg = 0.f;
+  if (live) {
+    ah = inv[0] * scale_h[c];
+    if constexpr (kEpilogue != kNone) bh = bias_h[c];
+    if constexpr (kGated) {
+      ag = inv[1] * scale_g[c];
+      bg = bias_g[c];
+    }
+  }
+
+  // Each array's sum(dz * (x - mean)), then its sum(dz).
+  float sums[2 * A];
+#pragma unroll
+  for (int i = 0; i < 2 * A; ++i) sums[i] = 0.f;
+  if (live) {
+    Walk w = start;
+    for (int u = t; u < nU; u += gt, w.next(nW)) {
+      const int w0 = w.wu * V, n = min(V, W - w0), off = w.h * W + w0;
+      float h[V], g[V], d[V];
+      load_unit<kVec>(row[0] + off, n, h);
+      if constexpr (kGated) load_unit<kVec>(row[A - 1] + off, n, g);
+      load_unit<kVec>(dyr + off, n, d);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if (!kVec && k >= n) break;  // past a ragged unit's end: w >= W
+        const float ch = h[k] - m[0], cg = kGated ? g[k] - m[A - 1] : 0.f;
+        float dzg = 0.f;
+        const float dzh = grad_z<kEpilogue>(ch, cg, d[k], ah, bh, ag, bg, dzg);
+        sums[0] += dzh * ch;
+        sums[1] += dzh;
+        if constexpr (kGated) {
+          sums[2] += dzg * cg;
+          sums[3] += dzg;
+        }
+      }
+    }
+  }
+  group_sum(sums, gt, red);
+  if (!live) return;
+
+  // sum(dz * xhat) = inv * sum(dz * (x - mean)): the row's dscale; sum(dz)
+  // its dbias. dx = a * (dz - mean(dz) - (x - mean) * kx) with a = scale *
+  // inv and kx = inv * mean(dz * xhat).
+  const size_t bc = (size_t)B * C, at = (size_t)b * C + c;
+  float mdz[A], kx[A];
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    const float dsc = inv[a] * sums[2 * a];
+    if (t == 0) {
+      part[2 * a * bc + at] = dsc;
+      part[(2 * a + 1) * bc + at] = sums[2 * a + 1];
+    }
+    mdz[a] = sums[2 * a + 1] * inv_n;
+    kx[a] = inv[a] * dsc * inv_n;
+  }
+  T* dxr = dx + ((size_t)b * A * C + c) * S;
+  Walk w = start;
+  for (int u = t; u < nU; u += gt, w.next(nW)) {
+    const int w0 = w.wu * V, n = min(V, W - w0), off = w.h * W + w0;
+    float h[V], g[V], d[V], oh[V], og[V];
+    load_unit<kVec>(row[0] + off, n, h);
+    if constexpr (kGated) load_unit<kVec>(row[A - 1] + off, n, g);
+    load_unit<kVec>(dyr + off, n, d);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float ch = h[k] - m[0], cg = kGated ? g[k] - m[A - 1] : 0.f;
+      float dzg = 0.f;
+      const float dzh = grad_z<kEpilogue>(ch, cg, d[k], ah, bh, ag, bg, dzg);
+      oh[k] = ah * (dzh - mdz[0] - ch * kx[0]);
+      if constexpr (kGated) og[k] = ag * (dzg - mdz[A - 1] - cg * kx[A - 1]);
+    }
+    store_unit<kVec>(dxr + off, n, oh);
+    if constexpr (kGated) store_unit<kVec>(dxr + (size_t)C * S + off, n, og);
+  }
+}
+
 int device_attribute(cudaDeviceAttr attr) {
   int dev = 0, v = 0;
   cudaGetDevice(&dev);
@@ -447,23 +642,33 @@ size_t staged_max(const void* p, size_t bytes, size_t stride) {
   return most;
 }
 
+// The most bytes `rows` consecutive rows of `row` bytes each take staged,
+// for any block: `arrays` runs from x (K1's h and g rows) and, for a
+// backward, one from dy.
+size_t staged_rows(const void* x, const void* dy, int arrays, int rows, size_t row) {
+  return arrays * staged_max(x, rows * row, row) + (dy ? staged_max(dy, rows * row, row) : 0);
+}
+
 struct Plan {
   int route;    // Route
-  bool vec;     // 16-byte accesses: W a multiple of V, x and y aligned
+  bool vec;     // 16-byte accesses: W a multiple of V, x, y (and dy) aligned
   int gt;       // threads a row
   int threads;  // threads a block: rows a block times gt
   int blocks;
   size_t smem;  // dynamic shared memory
 };
 
-// arrays: 2 for K1 (h and g rows), 1 for K2 and K3.
-Plan plan(const void* x, const void* y, int B, int C, int S, int W, int esize, int arrays) {
+// arrays: 2 for K1 (h and g rows), 1 for K2 and K3. dy: the backward's
+// gradient of y, whose rows a block stages beside x's (y is then dx); null
+// for the forward.
+Plan plan(const void* x, const void* dy, const void* y, int B, int C, int S, int W, int esize,
+          int arrays) {
   const int V = kVecBytes / esize;
   const int nU = (S / W) * ((W + V - 1) / V);
   const size_t row = (size_t)S * esize;
   Plan p;
   p.route = kBulk;
-  p.vec = W % V == 0 && aligned16(x) && aligned16(y);
+  p.vec = W % V == 0 && aligned16(x) && aligned16(y) && (!dy || aligned16(dy));
   int per_block = 1;  // rows a block
   if (nU <= kGroupMaxUnits) {
     p.gt = kMinGroup;
@@ -479,9 +684,9 @@ Plan plan(const void* x, const void* y, int B, int C, int S, int W, int esize, i
            (size_t)B * ((C + per_block - 1) / per_block) < (size_t)sm_count())
       per_block >>= 1;
     p.threads = per_block * p.gt;
-    p.smem = arrays * staged_max(x, per_block * row, row);
+    p.smem = staged_rows(x, dy, arrays, per_block, row);
   } else {
-    const size_t bytes = arrays * staged_max(x, row, row);
+    const size_t bytes = staged_rows(x, dy, arrays, 1, row);
     const int per_row = (nU + 31) / 32 * 32;
     if (bytes > (size_t)smem_limit()) {
       p.route = kStream;
@@ -519,7 +724,7 @@ template <typename T, int kEpilogue>
 int staged_forward(const void* x, const float* scale_h, const float* bias_h,
                    const float* scale_g, const float* bias_g, const int* lengths, void* y,
                    int B, int C, int S, int W, int* route, void* stream) {
-  const Plan p = plan(x, y, B, C, S, W, sizeof(T), kEpilogue == kGlu ? 2 : 1);
+  const Plan p = plan(x, nullptr, y, B, C, S, W, sizeof(T), kEpilogue == kGlu ? 2 : 1);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route) *route = p.route;
   if (p.route == kStream)
@@ -531,6 +736,40 @@ int staged_forward(const void* x, const float* scale_h, const float* bias_h,
                                                           bias_g, lengths, y, C, S, W, s)
                : launch_staged<T, kEpilogue, false, false>(p, x, scale_h, bias_h, scale_g,
                                                            bias_g, lengths, y, C, S, W, s);
+}
+
+template <typename T, int kEpilogue, bool kStream, bool kVec>
+int launch_backward(const Plan& p, const void* x, const void* dy, const float* scale_h,
+                    const float* bias_h, const float* scale_g, const float* bias_g, void* dx,
+                    float* part, int B, int C, int S, int W, cudaStream_t stream) {
+  auto kernel = in_backward_kernel<T, kEpilogue, kStream, kVec>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_limit());
+  if (attr != cudaSuccess) return (int)attr;
+  kernel<<<p.blocks, p.threads, p.smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), scale_h, bias_h, scale_g, bias_g,
+      static_cast<T*>(dx), part, B, C, S / W, W, p.gt);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int kEpilogue>
+int staged_backward(const void* x, const void* dy, const float* scale_h, const float* bias_h,
+                    const float* scale_g, const float* bias_g, void* dx, float* part, int B,
+                    int C, int S, int W, int* route, void* stream) {
+  const Plan p = plan(x, dy, dx, B, C, S, W, sizeof(T), kEpilogue == kGlu ? 2 : 1);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route) *route = p.route;
+  if (p.route == kStream)
+    return p.vec ? launch_backward<T, kEpilogue, true, true>(p, x, dy, scale_h, bias_h, scale_g,
+                                                             bias_g, dx, part, B, C, S, W, s)
+                 : launch_backward<T, kEpilogue, true, false>(p, x, dy, scale_h, bias_h,
+                                                              scale_g, bias_g, dx, part, B, C,
+                                                              S, W, s);
+  return p.vec ? launch_backward<T, kEpilogue, false, true>(p, x, dy, scale_h, bias_h, scale_g,
+                                                            bias_g, dx, part, B, C, S, W, s)
+               : launch_backward<T, kEpilogue, false, false>(p, x, dy, scale_h, bias_h,
+                                                             scale_g, bias_g, dx, part, B, C, S,
+                                                             W, s);
 }
 
 }  // namespace
@@ -587,9 +826,60 @@ int in_glu_forward_bf16(const void* x, const float* scale_h,
                                              y, B, C, S, W, route, stream);
 }
 
+// The backwards. x, dx: (B, C, S) rows of f32 (bf16 in the _bf16 entries),
+// the forward's input and its gradient; dy: (B, C, S), the gradient of the
+// forward's output, in x's dtype; scale, bias: (C,) f32 (in_backward reads
+// no bias); part: (2, B, C) f32, each row's sum(dz * xhat) (its share of
+// dscale) then its sum(dz) (of dbias); route as in in_forward, the rows of
+// x and dy staged together. Each returns a cudaError_t.
+int in_backward(const void* x, const void* dy, const float* scale, const float* bias,
+                void* dx, float* part, int B, int C, int S, int W, int* route, void* stream) {
+  return staged_backward<float, kNone>(x, dy, scale, bias, nullptr, nullptr, dx, part, B, C,
+                                       S, W, route, stream);
+}
+
+int in_backward_bf16(const void* x, const void* dy, const float* scale, const float* bias,
+                     void* dx, float* part, int B, int C, int S, int W, int* route,
+                     void* stream) {
+  return staged_backward<__nv_bfloat16, kNone>(x, dy, scale, bias, nullptr, nullptr, dx, part,
+                                               B, C, S, W, route, stream);
+}
+
+int in_swish_backward(const void* x, const void* dy, const float* scale, const float* bias,
+                      void* dx, float* part, int B, int C, int S, int W, int* route,
+                      void* stream) {
+  return staged_backward<float, kSwish>(x, dy, scale, bias, nullptr, nullptr, dx, part, B, C,
+                                        S, W, route, stream);
+}
+
+int in_swish_backward_bf16(const void* x, const void* dy, const float* scale,
+                           const float* bias, void* dx, float* part, int B, int C, int S,
+                           int W, int* route, void* stream) {
+  return staged_backward<__nv_bfloat16, kSwish>(x, dy, scale, bias, nullptr, nullptr, dx,
+                                                part, B, C, S, W, route, stream);
+}
+
+// x, dx: (B, 2C, S) rows (h then g); dy: (B, C, S); part: (4, B, C), h's
+// pair then g's.
+int in_glu_backward(const void* x, const void* dy, const float* scale_h, const float* bias_h,
+                    const float* scale_g, const float* bias_g, void* dx, float* part, int B,
+                    int C, int S, int W, int* route, void* stream) {
+  return staged_backward<float, kGlu>(x, dy, scale_h, bias_h, scale_g, bias_g, dx, part, B, C,
+                                      S, W, route, stream);
+}
+
+int in_glu_backward_bf16(const void* x, const void* dy, const float* scale_h,
+                         const float* bias_h, const float* scale_g, const float* bias_g,
+                         void* dx, float* part, int B, int C, int S, int W, int* route,
+                         void* stream) {
+  return staged_backward<__nv_bfloat16, kGlu>(x, dy, scale_h, bias_h, scale_g, bias_g, dx,
+                                              part, B, C, S, W, route, stream);
+}
+
 // The most bytes a block stages in shared memory: its rows (K1's h and g
-// rows), each run from its first 16-byte boundary to the one after its
-// end. A longer row streams from device memory.
+// rows; a backward's dy rows beside them), each run from its first 16-byte
+// boundary to the one after its end. A longer row streams from device
+// memory.
 int in_gate_smem_limit(void) { return smem_limit(); }
 
 const char* kernel_error_string(int code) {

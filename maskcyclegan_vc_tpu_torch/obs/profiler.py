@@ -187,11 +187,14 @@ totals, last, counters = RECORDER.totals, RECORDER.last, RECORDER.counters
 # The port's kernels by their names in a trace's kernel events, keyed as
 # the wrappers' launch counts. K1, K2 and K3 are one template,
 # in_staged_kernel<T, Epilogue, ...>, told apart by its epilogue (kGlu 2,
-# kNone 0, kSwish 1).
+# kNone 0, kSwish 1); their backwards another, in_backward_kernel.
 KERNEL_NAMES = {
     "in_glu": r"in_staged_kernel<\w+,[^,]*(?:2|kGlu)\s*,",
     "in": r"in_staged_kernel<\w+,[^,]*(?:0|kNone)\s*,",
     "in_swish": r"in_staged_kernel<\w+,[^,]*(?:1|kSwish)\s*,",
+    "in_glu_bwd": r"in_backward_kernel<\w+,[^,]*(?:2|kGlu)\s*,",
+    "in_bwd": r"in_backward_kernel<\w+,[^,]*(?:0|kNone)\s*,",
+    "in_swish_bwd": r"in_backward_kernel<\w+,[^,]*(?:1|kSwish)\s*,",
     "ps_in_swish": r"ps_in_swish_kernel",
     "ps_in_swish_bwd": r"ps_in_swish_backward_kernel",
     "shuffle": r"(?<!inverse_)pixel_shuffle_kernel",

@@ -27,11 +27,17 @@ took, as the C entry reports it (``ROUTES``): the rows staged once in shared
 memory by a bulk copy, or each row streamed from device memory where it is
 larger than a block's shared memory (``smem_limit_bytes``). Where an input requires
 grad, the unmasked function runs through a ``torch.autograd.Function``
-whose forward is that same kernel or plain version and whose backward is
-the JAX package's own (``_in_bwd``, ``_insw_bwd``, ``_inglu_bwd``: XLA
-there, eager PyTorch here, one code for both devices), recomputing the
-statistics from the saved input in f32 and returning dx in x's dtype,
-dscale and dbias in f32. The masked functions have no backward: no training path runs them.
+whose forward is that same kernel or plain version. Its backward
+(``instance_norm_backward``, ``instance_norm_swish_backward``,
+``instance_norm_glu_backward``) recomputes the statistics from the saved
+input in f32 and returns dx in x's dtype, dscale and dbias in f32: on the
+card one launch of ``in_gate.cu``'s backward entry (x and dy read once, dx
+written once; its routes counted in ``ROUTES`` as the forwards'), on the
+CPU the JAX package's custom_vjp formulas (``_in_bwd``, ``_insw_bwd``,
+``_inglu_bwd``, XLA there) in plain PyTorch (``*_backward_plain``), which
+are also the kernel's oracle. On the card those formulas had run as chains
+of eager ops, about 83 % of the bytes of a training step's eager ops. The
+masked functions have no backward: no training path runs them.
 Inside ``utils.debug.nan_debug_mode`` each launch's output is checked for
 NaN (``debug.check_kernel_outputs``), as in every kernel wrapper of the port.
 """
@@ -63,15 +69,24 @@ ENTRIES = {
     "in_glu": {torch.float32: IN_GLU_KERNEL,
                torch.bfloat16: CudaKernel("in_gate", "in_glu_forward_bf16", _GLU_ARGS)},
 }
+# The backwards: (x, dy, vectors, dx, part, B, C, S, W, route, stream).
+_ROW_BWD_ARGS = [PTR] * 6 + [INT] * 4 + [PTR, PTR]
+_GLU_BWD_ARGS = [PTR] * 8 + [INT] * 4 + [PTR, PTR]
+for _k, _symbol, _args in (("in", "in_backward", _ROW_BWD_ARGS),
+                           ("in_swish", "in_swish_backward", _ROW_BWD_ARGS),
+                           ("in_glu", "in_glu_backward", _GLU_BWD_ARGS)):
+    ENTRIES[f"{_k}_bwd"] = {torch.float32: CudaKernel("in_gate", _symbol, _args),
+                            torch.bfloat16: CudaKernel("in_gate", f"{_symbol}_bf16", _args)}
 
-# K2's, K1's and K3's launches by the route their blocks took, for each
-# kernel and dtype of x, as the C entry reports it: the rows bulk-copied
-# into shared memory ("bulk"), or each row read from device memory where it
-# exceeds a block's shared memory ("stream"). A caller may set a count back
-# to 0.
+# The launches of each entry by the route its blocks took, for each kernel
+# (K2's, K3's and K1's forwards and backwards) and dtype of x, as the C
+# entry reports it: the rows (a backward's x and dy rows) bulk-copied into
+# shared memory ("bulk"), or each row read from device memory where it
+# exceeds a block's shared memory ("stream"). On the card every backward of
+# a step launches once for each forward launch that recorded a gradient. A
+# caller may set a count back to 0.
 ROUTE_NAMES = ("bulk", "stream")
-ROUTES = {k: {dtype: dict.fromkeys(ROUTE_NAMES, 0) for dtype in DTYPES}
-          for k in ("in", "in_swish", "in_glu")}
+ROUTES = {k: {dtype: dict.fromkeys(ROUTE_NAMES, 0) for dtype in DTYPES} for k in ENTRIES}
 
 
 def smem_limit_bytes(device) -> int:
@@ -223,7 +238,8 @@ def _in_glu_forward(hg, scale_h, bias_h, scale_g, bias_g, lengths=None):
 
 
 # ---------------------------------------------------------------------------
-# Backwards: the JAX package's custom_vjp formulas, in PyTorch
+# Backwards: in_gate.cu's backward entries on the card, the JAX package's
+# custom_vjp formulas in plain PyTorch on the CPU
 # ---------------------------------------------------------------------------
 
 def _normalized(x: torch.Tensor):
@@ -253,6 +269,108 @@ def in_backward(dz: torch.Tensor, xhat: torch.Tensor, inv: torch.Tensor,
     return dx, dscale, dbias
 
 
+def instance_norm_backward_plain(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                                 bias: torch.Tensor):
+    """(dx, dscale, dbias) of ``instance_norm``: dx in x's dtype, the
+    others f32 (``in_gate_kernel.py:161-174``)."""
+    xhat, inv = _normalized(x)
+    dx, dscale, dbias = in_backward(dy.float(), xhat, inv, scale)
+    return dx.to(x.dtype), dscale, dbias
+
+
+def instance_norm_swish_backward_plain(x: torch.Tensor, dy: torch.Tensor,
+                                       scale: torch.Tensor, bias: torch.Tensor):
+    """(dx, dscale, dbias) of ``instance_norm_swish`` (``in_gate_kernel.py:191-207``)."""
+    xhat, inv = _normalized(x)
+    z = xhat * _affine_view(scale, x.ndim) + _affine_view(bias, x.ndim)
+    s = torch.sigmoid(z)
+    dz = dy.float() * (s + z * s * (1.0 - s))
+    dx, dscale, dbias = in_backward(dz, xhat, inv, scale)
+    return dx.to(x.dtype), dscale, dbias
+
+
+def instance_norm_glu_backward_plain(hg: torch.Tensor, dy: torch.Tensor,
+                                     scale_h: torch.Tensor, bias_h: torch.Tensor,
+                                     scale_g: torch.Tensor, bias_g: torch.Tensor):
+    """(dhg, dscale_h, dbias_h, dscale_g, dbias_g) of ``instance_norm_glu``
+    (``in_gate_kernel.py:226-258``); h and g are hg's channel halves, and
+    their gradients leave as one (B, 2C, ...) tensor, as hg came in."""
+    h, g = hg.chunk(2, dim=1)
+    hhat, ih = _normalized(h)
+    ghat, ig = _normalized(g)
+    yh = hhat * _affine_view(scale_h, hg.ndim) + _affine_view(bias_h, hg.ndim)
+    s = torch.sigmoid(ghat * _affine_view(scale_g, hg.ndim) + _affine_view(bias_g, hg.ndim))
+    dyf = dy.float()
+    dh, dsh, dbh = in_backward(dyf * s, hhat, ih, scale_h)
+    dg, dsg, dbg = in_backward(dyf * yh * s * (1.0 - s), ghat, ig, scale_g)
+    return torch.cat([dh, dg], dim=1).to(hg.dtype), dsh, dbh, dsg, dbg
+
+
+PLAIN_BACKWARDS = {"in": instance_norm_backward_plain,
+                   "in_swish": instance_norm_swish_backward_plain,
+                   "in_glu": instance_norm_glu_backward_plain}
+
+
+def _launch_backward(kernel: str, x: torch.Tensor, dy: torch.Tensor, vecs):
+    """One launch of in_gate.cu's backward entry of ``kernel`` for x's
+    dtype: (dx, dscale, dbias, ...), one (dscale, dbias) pair for each
+    array of x (K1: h's, then g's). The kernel leaves each row's share in a
+    (2A, B, C) f32 array, summed here over the batch."""
+    B = x.shape[0]
+    arrays = len(vecs) // 2
+    C = x.shape[1] // arrays
+    dx = torch.empty_like(x)
+    part = torch.empty((2 * arrays, B, C), device=x.device, dtype=torch.float32)
+    route = ctypes.c_int(-1)
+    name = f"{kernel}_bwd"
+    entry = ENTRIES[name][x.dtype]
+    with torch.cuda.device(x.device):
+        entry(x.data_ptr(), dy.data_ptr(), *(v.data_ptr() for v in vecs), dx.data_ptr(),
+              part.data_ptr(), B, C, x[0, 0].numel(), x.shape[-1], ctypes.addressof(route),
+              torch.cuda.current_stream().cuda_stream)
+    ROUTES[name][x.dtype][ROUTE_NAMES[route.value]] += 1
+    debug.check_kernel_outputs(entry.symbol, dx, part)
+    return (dx, *(part[:, 0] if B == 1 else part.sum(1)))
+
+
+def _backward(kernel: str, x: torch.Tensor, dy: torch.Tensor, vecs):
+    """The gradients of ``kernel`` (an ENTRIES key of a forward) at x from
+    dy, the gradient of its output: the kernel on the card, the plain
+    formulas on the CPU. dy may be non-contiguous (a batch slice of a
+    larger gradient): it is made contiguous before the launch."""
+    arrays = len(vecs) // 2
+    check_args(x, x.shape[1] // arrays if x.ndim > 1 else 0, vecs, None)
+    want = (x.shape[0], x.shape[1] // arrays) + tuple(x.shape[2:])
+    if dy.shape != want or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"expected {x.dtype} dy of shape {want} on {x.device}, "
+                         f"got {dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    dy = dy.contiguous()
+    if x.device.type == "cpu":
+        return PLAIN_BACKWARDS[kernel](x, dy, *vecs)
+    return _launch_backward(kernel, x, dy, vecs)
+
+
+def instance_norm_backward(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                           bias: torch.Tensor):
+    """(dx, dscale, dbias) of the unmasked ``instance_norm`` at x from dy:
+    dx in x's dtype, dscale and dbias f32, summed over the batch."""
+    return _backward("in", x, dy, (scale, bias))
+
+
+def instance_norm_swish_backward(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                                 bias: torch.Tensor):
+    """(dx, dscale, dbias) of the unmasked ``instance_norm_swish``."""
+    return _backward("in_swish", x, dy, (scale, bias))
+
+
+def instance_norm_glu_backward(hg: torch.Tensor, dy: torch.Tensor, scale_h: torch.Tensor,
+                               bias_h: torch.Tensor, scale_g: torch.Tensor,
+                               bias_g: torch.Tensor):
+    """(dhg, dscale_h, dbias_h, dscale_g, dbias_g) of the unmasked
+    ``instance_norm_glu``; dhg is (B, 2C, ...), as hg."""
+    return _backward("in_glu", hg, dy, (scale_h, bias_h, scale_g, bias_g))
+
+
 class _InstanceNormFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias):
@@ -261,10 +379,8 @@ class _InstanceNormFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        x, scale, _ = ctx.saved_tensors
-        xhat, inv = _normalized(x)
-        dx, dscale, dbias = in_backward(dy.float(), xhat, inv, scale)
-        return dx.to(x.dtype), dscale, dbias
+        x, scale, bias = ctx.saved_tensors
+        return instance_norm_backward(x, dy, scale, bias)
 
 
 class _InstanceNormSwishFn(torch.autograd.Function):
@@ -275,14 +391,8 @@ class _InstanceNormSwishFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        # in_gate_kernel.py:191-207
         x, scale, bias = ctx.saved_tensors
-        xhat, inv = _normalized(x)
-        z = xhat * _affine_view(scale, x.ndim) + _affine_view(bias, x.ndim)
-        s = torch.sigmoid(z)
-        dz = dy.float() * (s + z * s * (1.0 - s))
-        dx, dscale, dbias = in_backward(dz, xhat, inv, scale)
-        return dx.to(x.dtype), dscale, dbias
+        return instance_norm_swish_backward(x, dy, scale, bias)
 
 
 class _InstanceNormGluFn(torch.autograd.Function):
@@ -293,18 +403,8 @@ class _InstanceNormGluFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        # in_gate_kernel.py:226-258; h and g are hg's channel halves, and
-        # their gradients leave as one (B, 2C, ...) tensor, as hg came in.
-        hg, sh, bh, sg, bg = ctx.saved_tensors
-        h, g = hg.chunk(2, dim=1)
-        hhat, ih = _normalized(h)
-        ghat, ig = _normalized(g)
-        yh = hhat * _affine_view(sh, hg.ndim) + _affine_view(bh, hg.ndim)
-        s = torch.sigmoid(ghat * _affine_view(sg, hg.ndim) + _affine_view(bg, hg.ndim))
-        dyf = dy.float()
-        dh, dsh, dbh = in_backward(dyf * s, hhat, ih, sh)
-        dg, dsg, dbg = in_backward(dyf * yh * s * (1.0 - s), ghat, ig, sg)
-        return torch.cat([dh, dg], dim=1).to(hg.dtype), dsh, dbh, dsg, dbg
+        hg, *vecs = ctx.saved_tensors
+        return instance_norm_glu_backward(hg, dy, *vecs)
 
 
 # ---------------------------------------------------------------------------

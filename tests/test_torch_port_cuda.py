@@ -1490,6 +1490,236 @@ def test_k2_bf16_rows_of_odd_length(device, shape):
     _check_rows("in", x, vecs, lengths, "bulk")
 
 
+# ---------- K1, K2 and K3's backwards: in_backward_kernel ----------
+#
+# Each backward entry against the plain formulas (the JAX package's
+# custom_vjp backwards, ``*_backward_plain``) on the same x and dy. dx: TOL
+# in f32, ONE_BF16 in bf16 (both compute in f32 from the same values and
+# round dx once). dscale and dbias: each row's sums of dz * xhat and dz,
+# summed again over the batch, in another order than the plain version's,
+# so held to 1e-5 of the sum of the terms' magnitudes (``_bwd_bound``).
+
+BWD = {"in_glu": (in_gate.instance_norm_glu_backward, in_gate.instance_norm_glu_backward_plain),
+       "in": (in_gate.instance_norm_backward, in_gate.instance_norm_backward_plain),
+       "in_swish": (in_gate.instance_norm_swish_backward,
+                    in_gate.instance_norm_swish_backward_plain)}
+
+
+def _bwd_bound(kernel, x, dy, vecs):
+    """1e-5 of sum |dz| (1 + |xhat|) per channel for each array (K1: h's,
+    then g's), in the order of the (dscale, dbias) outputs."""
+    arrays = ROW_KERNELS[kernel][2]
+    xs = x.float().reshape(x.shape[0], x.shape[1], -1)
+    xhat = (xs - xs.mean(-1, keepdim=True)) * torch.rsqrt(xs.var(-1, unbiased=False,
+                                                                 keepdim=True) + 1e-5)
+    d = dy.float().reshape(dy.shape[0], dy.shape[1], -1)
+    C = d.shape[1]
+    hat = list(xhat.split(C, dim=1))
+    z = [hat[a] * vecs[2 * a][:, None] + vecs[2 * a + 1][:, None] for a in range(arrays)]
+    if kernel == "in":
+        dz = [d]
+    elif kernel == "in_swish":
+        s = torch.sigmoid(z[0])
+        dz = [d * (s + z[0] * s * (1 - s))]
+    else:
+        s = torch.sigmoid(z[1])
+        dz = [d * s, d * z[0] * s * (1 - s)]
+    out = []
+    for a in range(arrays):
+        b = 1e-5 * (dz[a].abs() * (1 + hat[a].abs())).sum((0, 2))
+        out += [b, b]
+    return out
+
+
+def _check_bwd(kernel, x, dy, vecs, route="bulk"):
+    """One launch of the backward entry of ``kernel`` on (x, dy): its count
+    and route go up by one, and its outputs are within their bounds of
+    the plain formulas'. Returns the outputs."""
+    fn, plain = BWD[kernel]
+    dtype = x.dtype
+    name = f"{kernel}_bwd"
+    routes, entry = in_gate.ROUTES[name][dtype], in_gate.ENTRIES[name][dtype]
+    before, launches = dict(routes), entry.launches
+    got = fn(x, dy, *vecs)
+    torch.cuda.synchronize()
+    assert entry.launches == launches + 1
+    assert {r: n - before[r] for r, n in routes.items()} == {
+        r: int(r == route) for r in in_gate.ROUTE_NAMES}
+    want = plain(x, dy.contiguous(), *vecs)
+    assert got[0].dtype == want[0].dtype == dtype and got[0].shape == x.shape
+    torch.testing.assert_close(got[0].float(), want[0].float(),
+                               **(TOL if dtype == torch.float32 else ONE_BF16))
+    for g, w, bound in zip(got[1:], want[1:], _bwd_bound(kernel, x, dy, vecs)):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert ((g - w).abs() <= bound).all(), ((g - w).abs() / bound).max().item()
+    return got
+
+
+def _bwd_inputs(device, kernel, shape, dtype, seed):
+    """x of the forward's input ``shape``, its vectors (scales in [0.5,
+    1.5), biases in [-1, 1)) and a dy of the output's shape, in ``dtype``."""
+    arrays = ROW_KERNELS[kernel][2]
+    C = shape[1] // arrays
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(shape, device=device, generator=g) * 2.0 + 0.5).to(dtype)
+    vecs = []
+    for i in range(2 * arrays):
+        v = torch.rand(C, device=device, generator=g)
+        vecs.append(v + 0.5 if i % 2 == 0 else v * 2.0 - 1.0)
+    dy = torch.randn((shape[0], C) + tuple(shape[2:]), device=device, generator=g).to(dtype)
+    return x, vecs, dy
+
+
+# The backward sites of a training step: the forwards with grad at 1 x 64
+# (pair_forwards: G at batch 1, 2 and 3; D at 1 and 2) and at 32 x 128.
+BWD_SITES = [("in_glu", (3, 512, 40, 32)), ("in_glu", (2, 512, 20, 16)),
+             ("in_glu", (1, 1024, 16)), ("in", (3, 256, 16)), ("in", (1, 5120, 16)),
+             ("in_swish", (1, 256, 40, 32)), ("in_swish", (2, 512, 20, 16)),
+             ("in_swish", (2, 1024, 10, 8)),
+             ("in_glu", (32, 512, 40, 64)), ("in_glu", (32, 512, 20, 32)),
+             ("in_glu", (32, 1024, 32)), ("in", (32, 256, 32)), ("in", (32, 5120, 32)),
+             ("in_swish", (32, 256, 40, 64)), ("in_swish", (32, 512, 20, 32)),
+             ("in_swish", (32, 1024, 10, 16))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", BWD_SITES,
+                         ids=[f"{k}-{'x'.join(map(str, s))}" for k, s in BWD_SITES])
+def test_k1_k3_backward_main_path_sites(device, dtype, site):
+    """Every K1, K2 and K3 backward site of a 1 x 64 and a 32 x 128 step:
+    bulk-copied with 16-byte accesses, within the bounds of the plain
+    formulas, and the same bits from a second launch."""
+    kernel, shape = site
+    x, vecs, dy = _bwd_inputs(device, kernel, shape, dtype, 50)
+    got = _check_bwd(kernel, x, dy, vecs)
+    again = BWD[kernel][0](x, dy, *vecs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["in_glu", "in", "in_swish"])
+@pytest.mark.parametrize("shape", [(2, 7, 13), (3, 24, 5, 9), (2, 10, 3, 5), (1, 4, 1, 1)])
+def test_k1_k3_backward_odd_rows(device, dtype, kernel, shape):
+    """S odd (every other bf16 row off a 16-byte boundary: its runs
+    bulk-copied between their boundaries, the head and tail by the
+    threads, scalar accesses, a ragged unit at each line's end) and a row
+    of one element."""
+    shape = (shape[0], shape[1] * ROW_KERNELS[kernel][2]) + shape[2:]
+    x, vecs, dy = _bwd_inputs(device, kernel, shape, dtype, 51)
+    _check_bwd(kernel, x, dy, vecs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["in_glu", "in", "in_swish"])
+def test_k1_k3_backward_past_the_shared_memory_limit(device, dtype, kernel):
+    """A row whose x and dy rows together pass a block's shared memory
+    streams from device memory (W odd, so scalar accesses); one 64 bytes
+    an array inside the limit is bulk-copied."""
+    limit = in_gate.smem_limit_bytes(device)
+    arrays = ROW_KERNELS[kernel][2]
+    esize = torch.finfo(dtype).bits // 8
+    S = limit // ((arrays + 1) * esize)
+    for n, route in ((S - 64 // esize, "bulk"), (S + 1 + S % 2, "stream")):
+        x, vecs, dy = _bwd_inputs(device, kernel, (2, arrays, n), dtype, 52)
+        _check_bwd(kernel, x, dy, vecs, route)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["in_glu", "in", "in_swish"])
+def test_k1_k3_backward_noncontiguous_dy(device, dtype, kernel):
+    """dy a batch slice of a larger gradient laid out batch-minor, as the
+    paired forwards' out[:B] hands it over: made contiguous, then the same
+    bits as from a contiguous copy."""
+    shape = (2, 8 * ROW_KERNELS[kernel][2], 4, 6)
+    x, vecs, _ = _bwd_inputs(device, kernel, shape, dtype, 53)
+    big = torch.randn((4, 8, 4, 6), device=device).to(dtype)
+    dy = big.transpose(0, 1).contiguous().transpose(0, 1)[:2]
+    assert not dy.is_contiguous()
+    got = _check_bwd(kernel, x, dy, vecs)
+    want = BWD[kernel][0](x, dy.contiguous(), *vecs)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["in_glu", "in", "in_swish"])
+def test_k1_k3_backward_aligned_beside_misaligned(device, dtype, kernel):
+    """x and dy 4 bytes off a 16-byte boundary: scalar accesses, the same
+    bits as from aligned tensors."""
+    shape = (2, 24 * ROW_KERNELS[kernel][2], 5, 16)
+    x, vecs, dy = _bwd_inputs(device, kernel, shape, dtype, 54)
+    shift = 4 // x.element_size()
+    off = []
+    for t in (x, dy):
+        buf = torch.empty(t.numel() + shift, device=device, dtype=dtype)
+        off.append(buf[shift:].view(t.shape))
+        off[-1].copy_(t)
+    aligned = _check_bwd(kernel, x, dy, vecs)
+    shifted = _check_bwd(kernel, off[0], off[1], vecs)
+    assert all(torch.equal(a, b) for a, b in zip(aligned, shifted))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["in_glu", "in", "in_swish"])
+def test_k1_k3_backward_nan_stays_in_its_row(device, dtype, kernel):
+    """A NaN in one row of x makes that row's dx NaN (K1: the pair's h and
+    g rows, the gate's NaN reaching both) and that channel's dscale, and no
+    other row's dx."""
+    shape = (2, 16 * ROW_KERNELS[kernel][2], 20, 16)
+    x, vecs, dy = _bwd_inputs(device, kernel, shape, dtype, 55)
+    C = 16
+    x[0, 1].view(-1)[-1] = float("nan")
+    out = BWD[kernel][0](x, dy, *vecs)
+    torch.cuda.synchronize()
+    dx = out[0]
+    rows = [1] + ([C + 1] if kernel == "in_glu" else [])
+    assert dx[0, rows].isnan().all()
+    good = [c for c in range(dx.shape[1]) if c not in rows]
+    assert torch.isfinite(dx[0, good]).all() and torch.isfinite(dx[1:]).all()
+    assert out[1][1].isnan() and torch.isfinite(out[1][2:]).all()
+
+
+def test_k1_k3_backward_routes_equal_forwards_with_grad(device, monkeypatch):
+    """One training step captured as a CUDA graph (after the first, eager)
+    and replayed: each K1-K3 backward entry's ROUTES count, over the eager
+    step and the capture, equals the number of its forward's launches that
+    recorded a gradient, all on the bulk route; the replays run no
+    wrapper, and the plain formulas never run on the card."""
+    seen = {}
+    for fn_cls, k in ((in_gate._InstanceNormFn, "in"), (in_gate._InstanceNormSwishFn, "in_swish"),
+                      (in_gate._InstanceNormGluFn, "in_glu")):
+        def forward(ctx, x, *vecs, _real=fn_cls.forward, _k=k):
+            seen[(_k, x.dtype)] = seen.get((_k, x.dtype), 0) + 1
+            return _real(ctx, x, *vecs)
+        monkeypatch.setattr(fn_cls, "forward", staticmethod(forward))
+    plain_on_card = []
+    real_normalized = in_gate._normalized
+
+    def normalized(x):
+        if x.device.type == "cuda":
+            plain_on_card.append(tuple(x.shape))
+        return real_normalized(x)
+
+    monkeypatch.setattr(in_gate, "_normalized", normalized)
+    for dtype in (None, torch.bfloat16):
+        cfg, banks = _tiny_training(device, dtype=dtype)
+        state = create_train_state(cfg, 0, device, capturable=True)
+        runner = _runner(cfg, banks, state)
+        dt = dtype or torch.float32
+        before = {k: dict(in_gate.ROUTES[f"{k}_bwd"][dt]) for k in BWD}
+        seen.clear()
+        runner.run(state, 1)
+        after_capture = {k: dict(in_gate.ROUTES[f"{k}_bwd"][dt]) for k in BWD}
+        rows = runner.run(state, 2)
+        torch.cuda.synchronize()
+        assert runner.replays == 2 and torch.isfinite(rows).all()
+        for k in BWD:
+            got = {r: n - before[k][r] for r, n in in_gate.ROUTES[f"{k}_bwd"][dt].items()}
+            assert got == {"bulk": seen[(k, dt)], "stream": 0}, (k, dtype, got, seen)
+            assert in_gate.ROUTES[f"{k}_bwd"][dt] == after_capture[k]
+    assert not plain_on_card
+
+
 # ---------- nan_debug_mode and the trace on the card ----------
 
 def _kernel_calls(device, dtype):

@@ -34,11 +34,16 @@ import numpy as np
 import pytest
 import torch
 
+from maskcyclegan_vc_tpu_torch.obs import profiler
 from maskcyclegan_vc_tpu_torch.ops.in_gate import (
+    instance_norm_backward_plain,
+    instance_norm_glu_backward_plain,
     instance_norm_glu_plain,
     instance_norm_plain,
+    instance_norm_swish_backward_plain,
     instance_norm_swish_plain,
 )
+from portbench import names
 
 CU = Path(__file__).resolve().parents[1] / "maskcyclegan_vc_tpu_torch" / "csrc" / "in_gate.cu"
 SOURCE = CU.read_text()
@@ -71,7 +76,7 @@ ONE_BF16 = dict(atol=1e-5, rtol=2 ** -7)
 FORMULAS = [
     # plan
     "const int nU = (S / W) * ((W + V - 1) / V);",
-    "p.vec = W % V == 0 && aligned16(x) && aligned16(y);",
+    "p.vec = W % V == 0 && aligned16(x) && aligned16(y) && (!dy || aligned16(dy));",
     "while (p.gt * kGroupUnits < nU && p.gt < 32) p.gt <<= 1;",
     "while (p.gt < 32 && p.gt < nU &&",
     "(size_t)B * C * p.gt * 2 <= (size_t)sm_count() * kThreadsPerSM)",
@@ -80,8 +85,9 @@ FORMULAS = [
     "(size_t)B * ((C + per_block - 1) / per_block) < (size_t)sm_count())",
     "per_block >>= 1;",
     "p.threads = per_block * p.gt;",
-    "p.smem = arrays * staged_max(x, per_block * row, row);",
-    "const size_t bytes = arrays * staged_max(x, row, row);",
+    "p.smem = staged_rows(x, dy, arrays, per_block, row);",
+    "return arrays * staged_max(x, rows * row, row) + (dy ? staged_max(dy, rows * row, row) : 0);",
+    "const size_t bytes = staged_rows(x, dy, arrays, 1, row);",
     "const int per_row = (nU + 31) / 32 * 32;",
     "if (bytes > (size_t)smem_limit()) {",
     "p.threads = min(kMaxThreads, per_row);",
@@ -152,8 +158,51 @@ FORMULAS = [
 ]
 
 
+# The backward's expressions (in_backward_kernel), each verbatim.
+BACKWARD_FORMULAS = [
+    "const Plan p = plan(x, dy, dx, B, C, S, W, sizeof(T), kEpilogue == kGlu ? 2 : 1);",
+    "const Plan p = plan(x, nullptr, y, B, C, S, W, sizeof(T), kEpilogue == kGlu ? 2 : 1);",
+    "src[A] = dy + ((size_t)b * C + c0) * S;",
+    "stage<A + 1>(dyn, src, rows * S, run, &bar);",
+    "for (int a = 0; a < A; ++a) row[a] = run[a] + (size_t)j * S;",
+    "const T* dyr = run[A] + (size_t)j * S;",
+    "const float inv_n = 1.f / (float)S;",
+    "if (live) unit_sums<kVec, false>(row, start, t, gt, nU, nW, W, W, zero, m);",
+    "if (live) unit_sums<kVec, true>(row, start, t, gt, nU, nW, W, W, m, q);",
+    "group_sum(q, gt, red + 2 * A * 32);",
+    "for (int a = 0; a < A; ++a) inv[a] = rsqrtf(q[a] * inv_n + kEps);",
+    "ah = inv[0] * scale_h[c];",
+    "if constexpr (kEpilogue != kNone) bh = bias_h[c];",
+    "ag = inv[1] * scale_g[c];",
+    "bg = bias_g[c];",
+    "const float ch = h[k] - m[0], cg = kGated ? g[k] - m[A - 1] : 0.f;",
+    "const float z = __fmaf_rn(ch, ah, bh), s = sigmoid(z);",
+    "return __fmul_rn(d, __fmaf_rn(__fmul_rn(z, s), __fsub_rn(1.f, s), s));",
+    "const float s = sigmoid(__fmaf_rn(cg, ag, bg)), yh = __fmaf_rn(ch, ah, bh);",
+    "dzg = __fmul_rn(__fmul_rn(__fmul_rn(d, yh), s), __fsub_rn(1.f, s));",
+    "return __fmul_rn(d, s);",
+    "if (!kVec && k >= n) break;  // past a ragged unit's end: w >= W",
+    "sums[0] += dzh * ch;",
+    "sums[1] += dzh;",
+    "sums[2] += dzg * cg;",
+    "sums[3] += dzg;",
+    "group_sum(sums, gt, red);",
+    "const size_t bc = (size_t)B * C, at = (size_t)b * C + c;",
+    "const float dsc = inv[a] * sums[2 * a];",
+    "part[2 * a * bc + at] = dsc;",
+    "part[(2 * a + 1) * bc + at] = sums[2 * a + 1];",
+    "mdz[a] = sums[2 * a + 1] * inv_n;",
+    "kx[a] = inv[a] * dsc * inv_n;",
+    "T* dxr = dx + ((size_t)b * A * C + c) * S;",
+    "oh[k] = ah * (dzh - mdz[0] - ch * kx[0]);",
+    "if constexpr (kGated) og[k] = ag * (dzg - mdz[A - 1] - cg * kx[A - 1]);",
+    "store_unit<kVec>(dxr + off, n, oh);",
+    "if constexpr (kGated) store_unit<kVec>(dxr + (size_t)C * S + off, n, og);",
+]
+
+
 def test_formulas_are_the_kernels():
-    for f in FORMULAS:
+    for f in FORMULAS + BACKWARD_FORMULAS:
         assert f in SOURCE, f"not in csrc/in_gate.cu: {f}"
 
 
@@ -169,13 +218,21 @@ def staged_max(addr: int, nbytes: int, stride: int) -> int:
     return max(staged_bytes(addr + k * stride, nbytes) for k in range(VEC_BYTES))
 
 
-def plan(x_addr, y_addr, B, C, S, W, esize, arrays, sm_count=SM_COUNT):
-    """``plan`` of in_gate.cu for x and y at the byte addresses given, on a
-    card of ``sm_count`` SMs."""
+def staged_rows(x_addr, dy_addr, arrays, rows, row):
+    """``staged_rows``: dy_addr None for a forward."""
+    return arrays * staged_max(x_addr, rows * row, row) + (
+        0 if dy_addr is None else staged_max(dy_addr, rows * row, row))
+
+
+def plan(x_addr, y_addr, B, C, S, W, esize, arrays, sm_count=SM_COUNT, dy_addr=None):
+    """``plan`` of in_gate.cu for x and y (a backward's dx) at the byte
+    addresses given, and a backward's dy (None for a forward), on a card
+    of ``sm_count`` SMs."""
     V = VEC_BYTES // esize
     nU = (S // W) * _cdiv(W, V)
     row = S * esize
-    p = dict(route="bulk", vec=W % V == 0 and x_addr % VEC_BYTES == 0 and y_addr % VEC_BYTES == 0)
+    p = dict(route="bulk", vec=W % V == 0 and x_addr % VEC_BYTES == 0 and y_addr % VEC_BYTES == 0
+             and (dy_addr is None or dy_addr % VEC_BYTES == 0))
     per_block = 1
     if nU <= GROUP_MAX_UNITS:
         gt = MIN_GROUP
@@ -188,9 +245,9 @@ def plan(x_addr, y_addr, B, C, S, W, esize, arrays, sm_count=SM_COUNT):
         while per_block > least and B * _cdiv(C, per_block) < sm_count:
             per_block >>= 1
         p.update(gt=gt, threads=per_block * gt,
-                 smem=arrays * staged_max(x_addr, per_block * row, row))
+                 smem=staged_rows(x_addr, dy_addr, arrays, per_block, row))
     else:
-        nbytes = arrays * staged_max(x_addr, row, row)
+        nbytes = staged_rows(x_addr, dy_addr, arrays, 1, row)
         per_row = (nU + 31) // 32 * 32
         if nbytes > SMEM_LIMIT:
             p.update(route="stream", smem=0, threads=min(MAX_THREADS, per_row))
@@ -281,6 +338,68 @@ def _round(a: np.ndarray, dtype) -> np.ndarray:
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dtype).float().numpy()
 
 
+def unit_maps(gt, H, W, V, vec):
+    """Every unit of a row, as the threads' walks reach it: (nU, w0, n,
+    off, k, inside, idx), with idx the row offset of each of a unit's V
+    slots (its first element's past the unit's n elements)."""
+    nW = _cdiv(W, V); nU = H * nW            # const int nW = (W + V - 1) / V, nU = H * nW;
+    h, wu = np.full(nU, -1), np.full(nU, -1)
+    for t in range(gt):
+        for uu, hh, ww in walk(t, gt, nU, nW):
+            assert h[uu] == -1, "a unit walked twice"
+            h[uu], wu[uu] = hh, ww
+    assert (h >= 0).all() and (wu < nW).all(), "a unit no thread walked"
+    w0 = wu * V                              # const int w0 = w.wu * V,
+    n = np.minimum(V, W - w0)                # n = min(V, W - w0),
+    off = h * W + w0                         # off = w.h * W + w0;
+    k = np.arange(V)
+    inside = k[None, :] < n[:, None]         # the unit's n elements; zeros past them
+    idx = off[:, None] + np.where(inside, k[None, :], 0)
+    if vec:
+        assert (n == V).all()
+    return nU, w0, n, off, k, inside, idx
+
+
+def load_rows(buf, starts, buf_addr, rows, S, units, esize, vec):
+    """Each run's ``rows`` rows, unit by unit, from ``buf`` (shared memory
+    or, streaming, device memory): (rows, nU, V) f32 per run, zeros past a
+    unit's end. A load of an element the stage never wrote fails, and with
+    ``vec`` every unit's address must be 16-byte aligned."""
+    _, _, _, off, _, inside, idx = units
+    out = []
+    for a, start in enumerate(starts):
+        row0 = start + np.arange(rows) * S       # row[a] += (size_t)j * S;
+        v = buf[row0[:, None, None] + idx[None]]
+        assert not np.isnan(v[:, inside]).any(), "read shared memory the stage never wrote"
+        if vec:
+            assert ((buf_addr[a] + (row0[:, None] - start + off[None]) * esize)
+                    % VEC_BYTES == 0).all()
+        out.append(np.where(inside[None], v, np.float32(0)).astype(np.float32))
+    return out
+
+
+def thread_sums(terms, gt, threads):
+    """``unit_sums`` and ``group_sum``: each thread's sum of ``terms`` (K,
+    rows, nU, V; zero where no element counts) over its units u = t, t +
+    gt, ..., then over its group: (K, rows), as thread j*gt of each row
+    receives it."""
+    K, rows, nU, _ = terms.shape
+    m_units = _cdiv(nU, gt)                  # units of a thread, at most
+    part = np.zeros((K, threads), np.float32)
+    for a in range(K):
+        per_unit = np.zeros((rows, m_units * gt), np.float32)
+        per_unit[:, :nU] = terms[a].sum(-1, dtype=np.float32)
+        part[a, :rows * gt] = per_unit.reshape(rows, m_units, gt).sum(
+            1, dtype=np.float32).reshape(-1)
+    total = group_sum(part, gt, threads)
+    return total[:, np.arange(rows) * gt]
+
+
+def _sigmoid(v):
+    with np.errstate(over="ignore"):  # exp(-v) = inf: 0
+        return np.float32(1) / (np.float32(1) + np.exp(-v))
+
+
 def emulate(kernel, x, vecs, lengths=None, lead=0, sm_count=SM_COUNT):
     """One launch of ``in_staged_kernel``, every block of its grid, with x at a
     byte address ``lead`` past a 16-byte boundary (y aligned, as
@@ -300,25 +419,10 @@ def emulate(kernel, x, vecs, lengths=None, lead=0, sm_count=SM_COUNT):
     memory = x.float().numpy().reshape(-1)  # device memory, element-indexed
     y = np.full(B * C * S, np.nan, np.float32)
     written = np.zeros(B * C * S, int)
-    nW = _cdiv(W, V); nU = H * nW            # const int nW = (W + V - 1) / V, nU = H * nW;
-    # Each thread's walk gives each of its units' line and column.
-    h, wu = np.full(nU, -1), np.full(nU, -1)
-    for t in range(gt):
-        for uu, hh, ww in walk(t, gt, nU, nW):
-            assert h[uu] == -1, "a unit walked twice"
-            h[uu], wu[uu] = hh, ww
-    assert (h >= 0).all() and (wu < nW).all(), "a unit no thread walked"
-    w0 = wu * V                              # const int w0 = w.wu * V,
-    n = np.minimum(V, W - w0)                # n = min(V, W - w0),
-    off = h * W + w0                         # off = w.h * W + w0;
-    k = np.arange(V)
-    inside = k[None, :] < n[:, None]         # the unit's n elements; zeros past them
-    idx = off[:, None] + np.where(inside, k[None, :], 0)
-    if vec:
-        assert (n == V).all()
+    units = unit_maps(gt, H, W, V, vec)
+    w0, off, k, inside = units[1], units[3], units[4], units[5]
     R = threads // gt                        # const int R = blockDim.x / gt;
     groups = _cdiv(C, R)                     # const int groups = (C + R - 1) / R;
-    m_units = _cdiv(nU, gt)                  # units of a thread, at most
     scale = [v.numpy().astype(np.float32) for v in vecs]
     for blk in range(p["blocks"]):
         b = blk // groups                    # const int b = blockIdx.x / groups;
@@ -336,29 +440,13 @@ def emulate(kernel, x, vecs, lengths=None, lead=0, sm_count=SM_COUNT):
         L = W if lengths is None else min(max(int(lengths[b]), 0), W)
         inv_n = np.float32(1) / np.float32(max(H * L, 1))
         valid = (w0[:, None] + k[None, :]) < L   # if (q.w0 + k < L)
-        vals = []
-        for a in range(A):
-            row0 = starts[a] + np.arange(rows) * S   # row[a] += (size_t)j * S;
-            v = buf[row0[:, None, None] + idx[None]]
-            assert not np.isnan(v[:, inside]).any(), "read shared memory the stage never wrote"
-            if vec:
-                assert ((buf_addr[a] + (row0[:, None] - starts[a] + off[None]) * esize)
-                        % VEC_BYTES == 0).all()
-            vals.append(np.where(inside[None], v, np.float32(0)).astype(np.float32))
+        vals = load_rows(buf, starts, buf_addr, rows, S, units, esize, vec)
 
         def sums(center, square):
-            """Each thread's sum over its units (u = t, t + gt, ...), then
-            group_sum over the block, h and g together."""
-            part = np.zeros((A, threads), np.float32)
-            for a in range(A):
-                d = vals[a] - center[a][:, None, None]
-                d = np.where(valid[None], d * d if square else d, np.float32(0))
-                per_unit = np.zeros((rows, m_units * gt), np.float32)
-                per_unit[:, :nU] = d.sum(-1, dtype=np.float32)
-                part[a, :rows * gt] = per_unit.reshape(rows, m_units, gt).sum(
-                    1, dtype=np.float32).reshape(-1)
-            total = group_sum(part, gt, threads)
-            return total[:, np.arange(rows) * gt]  # (A, rows): thread j*gt of each row
+            """h and g together, over the valid columns."""
+            d = [vals[a] - center[a][:, None, None] for a in range(A)]
+            return thread_sums(np.stack([np.where(valid[None], t * t if square else t,
+                                                  np.float32(0)) for t in d]), gt, threads)
 
         zero = [np.zeros(rows, np.float32)] * A
         mean = sums(zero, False) * inv_n         # m[a] *= inv_n
@@ -367,13 +455,12 @@ def emulate(kernel, x, vecs, lengths=None, lead=0, sm_count=SM_COUNT):
         ah = np.float32(1) / np.sqrt(q[0] * inv_n + EPS) * scale[0][c]
         bh = scale[1][c] - mean[0] * ah
         z = vals[0] * ah[:, None, None] + bh[:, None, None]
-        with np.errstate(over="ignore"):  # exp(-z) = inf: swish -> -0, sigmoid -> 0
-            if gated:
-                ag = np.float32(1) / np.sqrt(q[1] * inv_n + EPS) * scale[2][c]
-                bg = scale[3][c] - mean[1] * ag
-                gz = vals[1] * ag[:, None, None] + bg[:, None, None]
-                z = z * (np.float32(1) / (np.float32(1) + np.exp(-gz)))
-            elif kernel == "in_swish":
+        if gated:
+            ag = np.float32(1) / np.sqrt(q[1] * inv_n + EPS) * scale[2][c]
+            bg = scale[3][c] - mean[1] * ag
+            z = z * _sigmoid(vals[1] * ag[:, None, None] + bg[:, None, None])
+        elif kernel == "in_swish":
+            with np.errstate(over="ignore"):  # exp(-z) = inf: swish -> -0
                 z = z / (np.float32(1) + np.exp(-z))
         out = np.where(valid[None], z, np.float32(0))
         yr = (b * C + c) * S                     # T* yr = y + ((size_t)b * C + c) * S;
@@ -385,6 +472,98 @@ def emulate(kernel, x, vecs, lengths=None, lead=0, sm_count=SM_COUNT):
     assert (written == 1).all(), "an output written twice or not at all"
     shape = (B, C) + tuple(x.shape[2:])
     return torch.from_numpy(y.reshape(shape)).to(x.dtype), p
+
+
+def emulate_backward(kernel, x, dy, vecs, lead=0, dy_lead=0, sm_count=SM_COUNT):
+    """One launch of ``in_backward_kernel``, every block of its grid, with x
+    and dy at byte addresses ``lead`` and ``dy_lead`` past a 16-byte
+    boundary (dx and the partials aligned, as ``torch.empty`` gives them),
+    then the wrapper's sum of the (2A, B, C) partials over the batch.
+    Returns (dx, dscale, dbias[, dscale_g, dbias_g]) and the plan."""
+    gated = kernel == "in_glu"
+    A = 2 if gated else 1
+    B, W = x.shape[0], x.shape[-1]
+    C = x.shape[1] // A
+    S = int(np.prod(x.shape[2:]))
+    H = S // W
+    esize = x.element_size()
+    V = VEC_BYTES // esize
+    x_addr, dy_addr, dx_addr = 4096 + lead, (1 << 26) + dy_lead, 1 << 20
+    p = plan(x_addr, dx_addr, B, C, S, W, esize, A, sm_count, dy_addr)
+    vec, gt, threads = p["vec"], p["gt"], p["threads"]
+    memory = np.concatenate([x.float().numpy().reshape(-1), dy.float().numpy().reshape(-1)])
+    dy0 = x.numel()                          # dy's first element in ``memory``
+    dx = np.full(x.numel(), np.nan, np.float32)
+    part = np.full(2 * A * B * C, np.nan, np.float32)
+    written, part_written = np.zeros(dx.size, int), np.zeros(part.size, int)
+    units = unit_maps(gt, H, W, V, vec)
+    off, k, inside = units[3], units[4], units[5]
+    R = threads // gt
+    groups = _cdiv(C, R)
+    vec32 = [v.numpy().astype(np.float32) for v in vecs]
+    inv_n = np.float32(1) / np.float32(S)    # const float inv_n = 1.f / (float)S;
+    for blk in range(p["blocks"]):
+        b = blk // groups
+        c0 = (blk - b * groups) * R
+        rows = min(R, C - c0)
+        src = [(b * A * C + c0) * S]         # src[0] = x + ((size_t)b * A * C + c0) * S;
+        if gated:
+            src.append(src[0] + C * S)
+        src.append(dy0 + (b * C + c0) * S)   # src[A] = dy + ((size_t)b * C + c0) * S;
+        addrs = [x_addr + s * esize for s in src[:A]] + [dy_addr + (src[A] - dy0) * esize]
+        if p["route"] == "stream":
+            buf, starts, buf_addr = memory, src, addrs
+        else:                                # stage<A + 1>(dyn, src, rows * S, run, &bar);
+            buf, starts = emulate_stage(p["smem"], list(zip(addrs, src)), rows * S, esize, memory)
+            buf_addr = [d * esize for d in starts]
+        vals = load_rows(buf, starts, buf_addr, rows, S, units, esize, vec)
+        d = vals[A]
+        inn = inside[None]
+        mean = thread_sums(np.stack([np.where(inn, vals[a], np.float32(0)) for a in range(A)]),
+                           gt, threads) * inv_n
+        cen = [vals[a] - mean[a][:, None, None] for a in range(A)]
+        q = thread_sums(np.stack([np.where(inn, t * t, np.float32(0)) for t in cen]), gt,
+                        threads)
+        inv = np.float32(1) / np.sqrt(q * inv_n + EPS)  # inv[a] = rsqrtf(q[a] * inv_n + kEps);
+        c = c0 + np.arange(rows)
+        a_of = [inv[a] * vec32[2 * a][c] for a in range(A)]  # ah = inv[0] * scale_h[c];
+        ah, bh = a_of[0][:, None, None], vec32[1][c][:, None, None]
+        if kernel == "in":
+            dz = [d]                         # return d;
+        elif kernel == "in_swish":
+            z = cen[0] * ah + bh             # z = __fmaf_rn(ch, ah, bh), s = sigmoid(z);
+            s = _sigmoid(z)                  # d * fma(z * s, 1 - s, s)
+            dz = [d * (z * s * (np.float32(1) - s) + s)]
+        else:
+            ag, bg = a_of[1][:, None, None], vec32[3][c][:, None, None]
+            s = _sigmoid(cen[1] * ag + bg)   # s = sigmoid(__fmaf_rn(cg, ag, bg))
+            dz = [d * s, d * (cen[0] * ah + bh) * s * (np.float32(1) - s)]
+        terms = []
+        for a in range(A):                   # sums[0] += dzh * ch; sums[1] += dzh;
+            terms += [np.where(inn, dz[a] * cen[a], np.float32(0)), np.where(inn, dz[a], 0)]
+        sums = thread_sums(np.stack(terms).astype(np.float32), gt, threads)
+        at = b * C + c                       # at = (size_t)b * C + c
+        for a in range(A):
+            dsc = inv[a] * sums[2 * a]       # const float dsc = inv[a] * sums[2 * a];
+            for i, v in ((2 * a, dsc), (2 * a + 1, sums[2 * a + 1])):
+                part[i * B * C + at] = v     # part[2 * a * bc + at] = dsc; ...
+                np.add.at(part_written, i * B * C + at, 1)
+            mdz = sums[2 * a + 1] * inv_n    # mdz[a] = sums[2 * a + 1] * inv_n;
+            kx = inv[a] * dsc * inv_n        # kx[a] = inv[a] * dsc * inv_n;
+            out = a_of[a][:, None, None] * (dz[a] - mdz[:, None, None]
+                                            - cen[a] * kx[:, None, None])
+            dxr = (b * A * C + c) * S + a * C * S  # dxr + (size_t)C * S for g
+            dst = (dxr[:, None, None] + off[None, :, None] + k[None, None, :])[:, inside]
+            if vec:
+                assert ((dx_addr + (dxr[:, None] + off[None]) * esize) % VEC_BYTES == 0).all()
+            dx[dst] = _round(out[:, inside], x.dtype)
+            np.add.at(written, dst, 1)
+    assert (written == 1).all(), "an element of dx written twice or not at all"
+    assert (part_written == 1).all(), "a partial written twice or not at all"
+    part = torch.from_numpy(part.reshape(2 * A, B, C))
+    got = (torch.from_numpy(dx.reshape(x.shape)).to(x.dtype),
+           *(part[:, 0] if B == 1 else part.sum(1)))
+    return got, p
 
 
 def _inputs(kernel, shape, dtype, seed):
@@ -560,3 +739,185 @@ def test_group_sum_tree():
         got = group_sum(v, gt, threads)
         want = np.repeat(v.reshape(2, threads // gt, gt).sum(-1), gt, axis=1)
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---------- the backwards: in_backward_kernel ----------
+
+PLAIN_BACKWARD = {"in_glu": instance_norm_glu_backward_plain, "in": instance_norm_backward_plain,
+                  "in_swish": instance_norm_swish_backward_plain}
+
+
+def _backward_inputs(kernel, shape, dtype, seed):
+    """x of the forward's output ``shape`` (K1: 2C channels), its vectors
+    (scales in [0.5, 1.5), biases in [-1, 1)) and dy, in ``dtype``."""
+    rs = np.random.RandomState(seed)
+    A = 2 if kernel == "in_glu" else 1
+    B, C = shape[:2]
+    x = torch.from_numpy((rs.randn(B, A * C, *shape[2:]) * 2.0 + 0.5).astype(np.float32))
+    vecs = [torch.from_numpy((rs.rand(C) + (0.5 if i % 2 == 0 else -0.5)).astype(np.float32)
+                             * (1 if i % 2 == 0 else 2)) for i in range(2 * A)]
+    dy = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+    return x.to(dtype), vecs, dy.to(dtype)
+
+
+def _backward_bounds(kernel, x, dy, vecs):
+    """1e-5 of sum |dz| (1 + |xhat|) per channel, for each (dscale, dbias)
+    output: their sums run in another order than the plain formulas'."""
+    A = 2 if kernel == "in_glu" else 1
+    xs = x.float().reshape(x.shape[0], x.shape[1], -1)
+    hat = (xs - xs.mean(-1, keepdim=True)) * torch.rsqrt(
+        xs.var(-1, unbiased=False, keepdim=True) + 1e-5)
+    d = dy.float().reshape(dy.shape[0], dy.shape[1], -1)
+    hats = hat.split(d.shape[1], dim=1)
+    z = [hats[a] * vecs[2 * a][:, None] + vecs[2 * a + 1][:, None] for a in range(A)]
+    if kernel == "in":
+        dz = [d]
+    elif kernel == "in_swish":
+        s = torch.sigmoid(z[0])
+        dz = [d * (s + z[0] * s * (1 - s))]
+    else:
+        s = torch.sigmoid(z[1])
+        dz = [d * s, d * z[0] * s * (1 - s)]
+    return [1e-5 * (dz[a].abs() * (1 + hats[a].abs())).sum((0, 2)) for a in range(A)
+            for _ in range(2)]
+
+
+def _check_backward(kernel, x, dy, vecs, got):
+    want = PLAIN_BACKWARD[kernel](x, dy, *vecs)
+    assert got[0].dtype == want[0].dtype == x.dtype
+    torch.testing.assert_close(got[0].float(), want[0].float(),
+                               **(TOL if x.dtype == torch.float32 else ONE_BF16))
+    for g, w, bound in zip(got[1:], want[1:], _backward_bounds(kernel, x, dy, vecs)):
+        assert ((g - w).abs() <= bound).all(), ((g - w).abs() / bound).max().item()
+
+
+# Output shapes (B, C, *spatial): odd W and S % V != 0, a row group that
+# ends inside a block (C = 133), many short rows, rows of one element and
+# a whole-block row.
+BACKWARD_SHAPES = [(3, 5, 7), (2, 3, 4, 9), (2, 6, 1030), (2, 133, 9), (4, 7, 2, 16),
+                   (1, 4, 1, 1), (2, 64, 20, 16), (1, 16, 40, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BACKWARD_SHAPES)
+@pytest.mark.parametrize("kernel", ["in_glu", "in", "in_swish"])
+def test_backward_maps(kernel, shape, dtype):
+    """Every element of dx and every partial written once, from staged
+    elements only, within the plain backward's tolerance: x and dy aligned,
+    x 4 bytes and dy 2 or 4 bytes off a boundary (scalar accesses, the same
+    bits), and as a card of one SM would plan the small shapes."""
+    x, vecs, dy = _backward_inputs(kernel, shape, dtype, sum(shape) + 1)
+    got, p = emulate_backward(kernel, x, dy, vecs)
+    assert p["route"] == "bulk"
+    _check_backward(kernel, x, dy, vecs, got)
+    shifted, p = emulate_backward(kernel, x, dy, vecs, 4, x.element_size())
+    assert p["route"] == "bulk" and not p["vec"]
+    assert all(torch.equal(a, b) for a, b in zip(got, shifted))
+    if x.numel() < 1 << 16:
+        one_sm, _ = emulate_backward(kernel, x, dy, vecs, sm_count=1)
+        _check_backward(kernel, x, dy, vecs, one_sm)
+
+
+@pytest.mark.parametrize("kernel", ["in_glu", "in", "in_swish"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_streaming_route(kernel, dtype):
+    """A row whose x and dy rows together pass a block's shared memory
+    (W odd: scalar accesses) streams from device memory, with the same
+    maps; one 64 bytes an array inside it is bulk-copied."""
+    A = 2 if kernel == "in_glu" else 1
+    esize = torch.finfo(dtype).bits // 8
+    S = SMEM_LIMIT // ((A + 1) * esize)
+    assert plan(4096, 8192, 1, 1, S - 64 // esize, S - 64 // esize, esize, A,
+                dy_addr=1 << 20)["route"] == "bulk"
+    x, vecs, dy = _backward_inputs(kernel, (1, 1, S + 1 + S % 2), dtype, 5)
+    got, p = emulate_backward(kernel, x, dy, vecs)
+    assert p["route"] == "stream" and not p["vec"] and p["smem"] == 0
+    _check_backward(kernel, x, dy, vecs, got)
+
+
+# The backward sites of a training step (the forwards with grad): at 1 x 64
+# (pair_forwards: G at batch 1, 2 and 3, D at 1 and 2), at 32 x 128, and a
+# 1 x 320 step's largest (K1's downSample1 input, 76.8 KB of f32 x and dy
+# a row).
+BACKWARD_SITES = {
+    "in_glu": [(B, 512, 40, 32) for B in (1, 2, 3)] + [(B, 512, 20, 16) for B in (1, 2, 3)]
+              + [(B, 1024, 16) for B in (1, 2, 3)]
+              + [(32, 512, 40, 64), (32, 512, 20, 32), (32, 1024, 32), (1, 512, 40, 160)],
+    "in": [(B, C, 16) for B in (1, 2, 3) for C in (256, 5120)] + [(32, 256, 32), (32, 5120, 32)],
+    "in_swish": [(B, 256, 40, 32) for B in (1, 2)] + [(B, 512, 20, 16) for B in (1, 2)]
+                + [(B, 1024, 10, 8) for B in (1, 2)]
+                + [(32, 256, 40, 64), (32, 512, 20, 32), (32, 1024, 10, 16)],
+}
+
+
+@pytest.mark.parametrize("kernel", ["in_glu", "in", "in_swish"])
+@pytest.mark.parametrize("esize", [4, 2])
+def test_backward_main_path_sites_take_the_bulk_route(kernel, esize):
+    """Every backward site of the main path stages x and dy with 16-byte
+    accesses, its block's shared memory within what an SM holds; the
+    1 x 320 step's K1 site takes 76.8 KB in f32."""
+    A = 2 if kernel == "in_glu" else 1
+    for shape in BACKWARD_SITES[kernel]:
+        B, C, W = shape[0], shape[1] // A, shape[-1]
+        S = int(np.prod(shape[2:]))
+        p = plan(0, 0, B, C, S, W, esize, A, dy_addr=0)
+        assert p["route"] == "bulk" and p["vec"], (shape, p)
+        assert p["threads"] % 32 == 0 and p["threads"] <= MAX_THREADS
+        assert p["smem"] + BLOCK_RESERVE + STATIC_SMEM <= SMEM_PER_SM
+        if shape == (1, 512, 40, 160):
+            assert p["smem"] == 3 * 6400 * esize
+
+
+def _global_kernels():
+    """(name, [parameter types]) of each __global__ template of in_gate.cu."""
+    found = re.findall(r"__global__ void __launch_bounds__\(kMaxThreads\)\s*(\w+)\(([^)]*)\)",
+                       SOURCE)
+    out = []
+    for name, params in found:
+        types = []
+        for p in params.split(","):
+            t = re.sub(r"__restrict__|\b\w+\s*$", "", " ".join(p.split())).strip()
+            t = re.sub(r"^const (\w+)\s*\*", r"\1 const*", t)
+            types.append(t.replace(" *", "*"))
+        out.append((name, types))
+    return out
+
+
+def _trace_names(name, types):
+    """The names a trace may give every instance of the template ``name``:
+    T f32 or bf16, each epilogue, each route and access width, the enum
+    printed by value or by name, with the demangled parameter list."""
+    names = []
+    for T in ("float", "__nv_bfloat16"):
+        args = ", ".join(t.replace("T", T) if re.fullmatch(r"T(?: const)?\*", t) else t
+                         for t in types)
+        for value, enum in ((0, "kNone"), (1, "kSwish"), (2, "kGlu")):
+            for ep in (f"(<unnamed>::Epilogue){value}", f"(Epilogue){value}",
+                       f"(anonymous namespace)::{enum}"):
+                for stream in ("false", "true"):
+                    for vec in ("false", "true"):
+                        names.append((enum, f"void (anonymous namespace)::{name}<{T}, {ep}, "
+                                            f"{stream}, {vec}>({args})"))
+    return names
+
+
+def test_kernel_names_keep_their_groups():
+    """In the benchmark's name table (``portbench/names.py``), each
+    instance of the forwards' template matches its own K1, K2 or K3
+    pattern and no other, and each instance of the backwards' template
+    falls in the eager group and matches no kernel pattern; the port's own
+    table (``obs.profiler.KERNEL_NAMES``) names each by its ENTRIES key."""
+    kernels = dict(_global_kernels())
+    assert sorted(kernels) == ["in_backward_kernel", "in_staged_kernel"]
+    own = {"kNone": "in", "kSwish": "in_swish", "kGlu": "in_glu"}
+    for name, types in kernels.items():
+        assert "T const*" in types and all("__restrict__" not in t for t in types)
+        for enum, trace_name in _trace_names(name, types):
+            matched = [k for k, pat in names.KERNEL_NAMES.items() if re.search(pat, trace_name)]
+            mine = [k for k, pat in profiler.KERNEL_NAMES.items() if re.search(pat, trace_name)]
+            if name == "in_staged_kernel":
+                assert matched == [own[enum]] and names.group(trace_name) == "kernels", trace_name
+                assert mine == [own[enum]], trace_name
+            else:
+                assert matched == [] and names.group(trace_name) == "eager", trace_name
+                assert mine == [f"{own[enum]}_bwd"], trace_name

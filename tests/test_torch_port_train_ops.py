@@ -332,6 +332,8 @@ def test_backward_budget_bytes_match_jax(batch, frames, split):
 
 def test_cpu_gradients_launch_no_kernel():
     counters = (in_gate.IN_KERNEL, in_gate.IN_SWISH_KERNEL, in_gate.IN_GLU_KERNEL,
+                *(e for k in ("in_bwd", "in_swish_bwd", "in_glu_bwd")
+                  for e in in_gate.ENTRIES[k].values()),
                 ps.PS_IN_SWISH_KERNEL, ps.PS_IN_SWISH_BWD_KERNEL, ps.INV_SHUFFLE_KERNEL)
     before = [c.launches for c in counters]
     x, s, b, dy = (torch.from_numpy(a) for a in _ps_inputs(5, 1, 4, 3, 5))
