@@ -29,7 +29,12 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               calls (at 1 frame the first stage is W = 8 wide); decode
               latency per utterance, audio-seconds decoded per second, a
               profile; then the same CLI with --griffin_lim (16 iterations,
-              on the host).
+              on the host); then with a HiFi-GAN V1 checkpoint in
+              jik876/hifi-gan's layout at the published widths (seeded
+              random weights, weight-normed): 78 convolutions a decode and
+              no K9 launch, the waveforms T x 256 samples; a 517-frame decode
+              against the plain reference (portbench/reference/hifigan.py)
+              on the card; its latency and a profile.
 6. train      the train CLI (cli/train.py main, --device cuda, --scan_epochs
               1 by default: each step a CUDA-graph replay) at full width on
               two synthetic speakers, 2 epochs then resumed to 3, with
@@ -179,7 +184,8 @@ from maskcyclegan_vc_tpu_torch.io.jax_params import (
     train_state_to_jax,
 )
 from maskcyclegan_vc_tpu_torch.models import Generator
-from maskcyclegan_vc_tpu_torch.models import melgan
+from maskcyclegan_vc_tpu_torch.models import hifigan, melgan
+from maskcyclegan_vc_tpu_torch.models import vocoder as vocoder_mod
 from maskcyclegan_vc_tpu_torch.obs import profiler
 from maskcyclegan_vc_tpu_torch.obs.logger import TrainLogger, to_host
 from maskcyclegan_vc_tpu_torch.ops import cuda_lib, in_gate, melgan_stack, melspec, ps
@@ -297,6 +303,10 @@ STAGE_TOL_BF16 = 2 * 2 ** -7
 # melgan-neurips module (weight norm applied by torch), max abs. Rounding
 # through 4 up-convs and 12 blocks gives ~1e-6; a faulty stage gives O(0.01+).
 WAV_TOL = 1e-4
+# HiFi-GAN on the card against the plain reference on the card, both f32
+# cuDNN with TF32 off: only the convolutions' algorithms and the order of
+# the bias add and the MRF sum differ (sums of up to 512 x 7 products).
+HIFIGAN_REL_TOL = 1e-5
 GRIFFIN_LIM_ITERS = 16  # the CLI's default is 60; 16 keeps the host-side run short
 
 
@@ -1216,13 +1226,13 @@ def phase_decode(device, pre: str, ckpts: str):
 
     # The vocoder on the card against the CPU plain path and against the
     # melgan-neurips module itself, on the target's 431-frame utterance.
-    vocoder = melgan.load_vocoder(voc_path, device)
+    vocoder = vocoder_mod.load_vocoder(voc_path, device)
     n = sum(p.numel() for p in vocoder.parameters())
     mels, mean, std = load_speaker(pre, "VCC2TF1")
     i431 = UTTERANCE_FRAMES.index(431)
     mel = mels[i431]
     got = melgan.decode_mel(vocoder, mel[None], mean, std)[0].cpu().numpy()
-    cpu = melgan.decode_mel(melgan.load_vocoder(voc_path, "cpu"), mel[None], mean, std)[0].numpy()
+    cpu = melgan.decode_mel(vocoder_mod.load_vocoder(voc_path, "cpu"), mel[None], mean, std)[0].numpy()
     with torch.no_grad():
         module = ref.to(device)(torch.from_numpy(mel * std + mean)[None].to(device))
     module = module[0, 0].cpu().numpy()
@@ -1235,7 +1245,7 @@ def phase_decode(device, pre: str, ckpts: str):
         raise AssertionError("the card's decode disagrees with its references")
     # Mels of 1-4 frames: at 1 frame the first stage (W = 8) is narrower
     # than its pad of 9, and K9 reflects the halo again, as jnp.pad does.
-    cpu_vocoder = melgan.load_vocoder(voc_path, "cpu")
+    cpu_vocoder = vocoder_mod.load_vocoder(voc_path, "cpu")
     for t in range(1, 5):
         reset_counts()
         short = melgan.decode_mel(vocoder, mel[None, :, :t], mean, std)[0].cpu().numpy()
@@ -1289,6 +1299,97 @@ def phase_decode(device, pre: str, ckpts: str):
     if gl_launches != want_gl or n_wavs != 2 * n_utt:
         raise AssertionError("the Griffin-Lim run went wrong")
     return voc_path, launches["melgan_stack"], stage_calls
+
+
+def hifigan_v1_checkpoint(path: str, seed: int, gain: float = 1.5) -> dict:
+    """A HiFi-GAN V1 generator checkpoint as jik876/hifi-gan writes one
+    (``{"generator": state_dict}``, every conv weight-normed) with the
+    benchmark's seeded weights at ``gain`` (``portbench/traffic.uniform_init``),
+    so that a decode neither fades nor saturates its tanh. Returns the folded
+    state_dict, which the plain reference takes."""
+    from portbench import traffic
+    from portbench.reference.hifigan import HiFiGAN
+
+    ref = HiFiGAN(80, hifigan.V1)
+    folded = traffic.uniform_init(ref, "", torch.Generator().manual_seed(seed), "cpu",
+                                  weight_gain=gain)
+    ref.load_state_dict(folded)
+    for m in ref.modules():
+        if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d)):
+            torch.nn.utils.weight_norm(m)
+    torch.save({"generator": ref.state_dict()}, path)
+    return folded
+
+
+def phase_hifigan(device, pre: str, ckpts: str) -> None:
+    """The second vocoder: the conversion CLI with a published-width HiFi-GAN
+    V1 checkpoint, then a 517-frame decode held to the plain reference."""
+    from portbench.reference.hifigan import HiFiGAN
+
+    path = os.path.join(WORK, "hifigan_v1_generator")
+    folded = hifigan_v1_checkpoint(path, 0)
+    save = os.path.join(WORK, "decode_results")
+    n_utt = len(UTTERANCE_FRAMES)
+    reset_counts()
+    before = dict(hifigan.CONVS)
+    t0 = time.perf_counter()
+    text = _run_cli(convert_main, ["--name", "hifigan", "--vocoder_ckpt", path, "--save_dir",
+                                   save, "--preprocessed_data_dir", pre, "--ckpt_dir", ckpts,
+                                   "--load_epoch", "1", "--device", "cuda", "--compute_mcd"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    convs = {k: hifigan.CONVS[k] - before[k] for k in hifigan.CONV_KINDS}
+    decodes = 3 * n_utt  # converted, original and target, as with MelGAN
+    want = {"pre": decodes, "up": 4 * decodes, "mrf": 72 * decodes, "post": decodes}
+    for ln in text.splitlines():
+        if ln.startswith(("wrote", "MCD", "F0", "ms an utterance")):
+            print(f"hifigan: CLI: {ln}", flush=True)
+    print(f"hifigan: CLI --vocoder_ckpt (HiFi-GAN V1) --compute_mcd on the card {wall:.2f} s; "
+          f"convolutions {convs} (expected {want}); K9 launches "
+          f"{KERNELS['melgan_stack']['counter'].launches} (expected 0)", flush=True)
+    if convs != want or KERNELS["melgan_stack"]["counter"].launches:
+        raise AssertionError("the HiFi-GAN decode run made other convolutions or launched K9")
+    out_dir = os.path.join(save, "hifigan", "converted_audio_1")
+    for i, t in enumerate(UTTERANCE_FRAMES):
+        for kind in ("converted", "original"):
+            wav, sr = read_wav(os.path.join(out_dir, f"{i}-{kind}_VCC2SF3_to_VCC2TF1.wav"))
+            if wav.shape != (t * HOP,) or sr != SAMPLE_RATE or not np.isfinite(wav).all():
+                raise AssertionError(f"hifigan {i}-{kind}: {wav.shape} at {sr} Hz")
+
+    vocoder = vocoder_mod.load_vocoder(path, device)
+    n = sum(p.numel() for p in vocoder.parameters())
+    ref = HiFiGAN(80, hifigan.V1).to(device)
+    ref.load_state_dict(folded)
+    src = load_speaker(pre, "VCC2SF3")
+    rs = np.random.RandomState(5)
+    mel = rs.randn(80, 517).astype(np.float32)
+    got = melgan.decode_mel(vocoder, mel[None], src[1], src[2])
+    with torch.no_grad():
+        x = torch.from_numpy(mel * src[2] + src[1])[None].to(device)
+        want_wav = ref(x * hifigan.LN10)
+    gap = float((got - want_wav).abs().max() / want_wav.abs().max())
+    peak = float(got.abs().max())
+    print(f"hifigan: V1 {n:,} parameters (expected 13,926,017); 517 frames -> {got.shape[1]} "
+          f"samples, peak {peak:.4f}; card vs the plain reference on the card: "
+          f"{gap:.3g} of the peak (bound {HIFIGAN_REL_TOL:g})", flush=True)
+    if n != 13_926_017 or got.shape != (1, 517 * HOP) or gap > HIFIGAN_REL_TOL:
+        raise AssertionError("the card's HiFi-GAN decode disagrees with the reference")
+    lat = {}
+    for t in UTTERANCE_FRAMES:
+        m = mel[None, :, :t]
+        melgan.decode_mel(vocoder, m, src[1], src[2]).cpu()
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            melgan.decode_mel(vocoder, m, src[1], src[2]).cpu()
+            runs.append(time.perf_counter() - t0)
+        lat[t] = float(np.median(runs))
+        print(f"hifigan: {t} frames ({t * HOP / SAMPLE_RATE:.3f} s audio): {1e3 * lat[t]:.3f} ms "
+              f"per decode (median of 5, host clock, H2D and D2H included)", flush=True)
+    print(f"hifigan: {sum(UTTERANCE_FRAMES) * HOP / SAMPLE_RATE / sum(lat.values()):.1f} "
+          f"audio-s decoded per s over the 5 lengths", flush=True)
+    profile(lambda: melgan.decode_mel(vocoder, mel[None], src[1], src[2]).cpu(),
+            lat[517], "517-frame HiFi-GAN V1 decode")
 
 
 def measure_log_mel(audio_inputs, device):
@@ -1997,7 +2098,7 @@ def phase_eval_decode(pre: str, audio_pre: str, device, vocoder_ckpt: str):
     (bf16 1 x 64 as graph replays) and the four K9 calls of a 431-frame
     bf16 decode, for the kernels phase."""
     bf16, f32 = torch.bfloat16, torch.float32
-    vocoders = {f32: melgan.load_vocoder(vocoder_ckpt, device),
+    vocoders = {f32: vocoder_mod.load_vocoder(vocoder_ckpt, device),
                 bf16: melgan.MelGANGenerator(device=device, dtype=bf16)}
     vocoders[bf16].load_state_dict(vocoders[f32].state_dict())
     launches = eval_decode_graphed(pre, device, vocoders[bf16], bf16, spans=3, n=10)
@@ -2718,6 +2819,8 @@ def main() -> int:
     vocoder_ckpt, stack_launches, stage_calls = phase_decode(
         device, audio_pre, os.path.join(WORK, "ckpts"))
     took("decode")
+    phase_hifigan(device, audio_pre, os.path.join(WORK, "ckpts"))
+    took("hifigan")
     launches, pre, train_args, f32_losses, det_losses = phase_train(device, vocoder_ckpt)
     took("train")
     launches.update({k: n for k, n in phase_train_bf16(device, pre, train_args, f32_losses)

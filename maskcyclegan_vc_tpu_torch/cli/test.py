@@ -8,10 +8,17 @@ checkpoint of either package (``NNNNN_state.npz``) or from a reference
 mask, and writes ``{i}-converted_{src}_to_{tgt}`` and
 ``{i}-original_{src}_to_{tgt}``:
 
-- as ``.wav`` through the MelGAN vocoder with ``--vocoder_ckpt`` (a
-  melgan-neurips checkpoint; the conversion decoded with the target
-  speaker's statistics, the original with the source's), or through
-  Griffin-Lim on the host with ``--griffin_lim`` (``--griffin_lim_iters``);
+- as ``.wav`` through a neural vocoder with ``--vocoder_ckpt`` (the
+  conversion decoded with the target speaker's statistics, the original
+  with the source's), or through Griffin-Lim on the host with
+  ``--griffin_lim`` (``--griffin_lim_iters``). ``--vocoder_ckpt`` takes
+  either of two checkpoint families, told apart by their keys
+  (``models/vocoder.load_vocoder``): a melgan-neurips generator (a
+  ``state_dict`` or a pickled module; ``models/melgan.py``), or a
+  jik876/hifi-gan generator checkpoint (``{"generator": state_dict}``, as
+  its training writes ``g_NNNNNNNN``, weight-normed or not; any
+  ``resblock`` "1" widths, V1's included; ``models/hifigan.py``, whose
+  forward scales the log10 mel by ln 10);
 - as ``.npy`` mels otherwise.
 
 ``--compute_mcd`` scores each conversion against the index-paired target
@@ -136,7 +143,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_name", type=str, default="generator_A2B",
                    choices=["generator_A2B", "generator_B2A"])
     p.add_argument("--vocoder_ckpt", type=str, default=None,
-                   help="melgan-neurips generator checkpoint: decode wavs with it")
+                   help="vocoder checkpoint, melgan-neurips or jik876/hifi-gan "
+                        "generator: decode wavs with it")
     p.add_argument("--sample_rate", type=int, default=22050)
     p.add_argument("--n_mels", type=int, default=80)
     p.add_argument("--residual_channels", type=int, default=256)
@@ -153,10 +161,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def make_decode_fn(args, device) -> Optional[Callable]:
     """(mel (M, T), mean, std) -> waveform (T * 256,) for the active
-    decoder: MelGAN with ``--vocoder_ckpt``, Griffin-Lim with
+    decoder: MelGAN or HiFi-GAN with ``--vocoder_ckpt``, Griffin-Lim with
     ``--griffin_lim``; None writes .npy mels."""
     if args.vocoder_ckpt:
-        from maskcyclegan_vc_tpu_torch.models.melgan import decode_mel, load_vocoder
+        from maskcyclegan_vc_tpu_torch.models.melgan import decode_mel
+        from maskcyclegan_vc_tpu_torch.models.vocoder import load_vocoder
 
         vocoder = load_vocoder(args.vocoder_ckpt, device)
 

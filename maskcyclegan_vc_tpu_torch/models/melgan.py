@@ -186,25 +186,13 @@ def load_melgan_state_dict(sd: Mapping[str, Any],
     return out
 
 
-def load_vocoder(path: str, device) -> MelGANGenerator:
-    """The vocoder from a melgan-neurips checkpoint file: a ``state_dict``,
-    or a pickled module whose ``state_dict()`` is taken. The file is a
-    pickle: load only checkpoints from a trusted source."""
-    sd = torch.load(path, map_location="cpu", weights_only=False)
-    if hasattr(sd, "state_dict"):
-        sd = sd.state_dict()
-    sd = load_melgan_state_dict(sd)
-    vocoder = MelGANGenerator(n_mels=sd["conv_in.weight"].shape[1],
-                              ngf=sd["conv_out.weight"].shape[1], device=device)
-    vocoder.load_state_dict(sd, strict=True)
-    return vocoder.eval()
-
-
 @torch.inference_mode()
-def decode_mel(vocoder: MelGANGenerator, mel: torch.Tensor, mean, std) -> torch.Tensor:
+def decode_mel(vocoder: nn.Module, mel: torch.Tensor, mean, std) -> torch.Tensor:
     """Denormalize (mel * std + mean, the reference's decode) and vocode:
-    (B, M, T) -> (B, T * 256). A ``decode`` span holding ``decode.h2d`` (the
-    mel, mean and std to the device) and ``decode.vocoder``."""
+    (B, M, T) -> (B, T * 256), with a ``MelGANGenerator`` or any vocoder that
+    takes log10 mels (``hifigan.HiFiGANGenerator``). A ``decode`` span
+    holding ``decode.h2d`` (the mel, mean and std to the device) and
+    ``decode.vocoder``."""
     dev = next(vocoder.parameters()).device
     with profiler.span("decode"):
         with profiler.span("decode.h2d"):

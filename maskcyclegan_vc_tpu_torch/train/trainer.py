@@ -75,7 +75,8 @@ from maskcyclegan_vc_tpu_torch.io.checkpoint import (
     save_checkpoint,
 )
 from maskcyclegan_vc_tpu_torch.io.jax_params import train_state_to_jax
-from maskcyclegan_vc_tpu_torch.models.melgan import decode_mel, load_vocoder
+from maskcyclegan_vc_tpu_torch.models.melgan import decode_mel
+from maskcyclegan_vc_tpu_torch.models.vocoder import load_vocoder
 from maskcyclegan_vc_tpu_torch.obs import profiler
 from maskcyclegan_vc_tpu_torch.obs.logger import TrainLogger, to_host
 from maskcyclegan_vc_tpu_torch.parallel.dist import local_batch_slice, rank, world_size

@@ -610,6 +610,42 @@ def test_vocoder_decodes_a_one_frame_mel_on_the_card(device):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
 
 
+def test_hifigan_v1_decode_on_the_card_matches_the_reference(device):
+    """A published-width HiFi-GAN V1 decode of a 517-frame mel on the card
+    (``melgan.decode_mel``: 78 cuDNN convolutions, no K9) against the plain
+    reference (``portbench/reference/hifigan.py``) on the card, both f32 with
+    TF32 off: only the convolutions' algorithms and the order of the bias
+    add and of the MRF sum differ (sums of up to 512 x 7 products), so 1e-5
+    of the waveform's peak."""
+    from maskcyclegan_vc_tpu_torch.models import hifigan
+    from maskcyclegan_vc_tpu_torch.models.melgan import decode_mel
+    from maskcyclegan_vc_tpu_torch.ops import melgan_stack
+    from portbench import traffic
+    from portbench.reference.hifigan import HiFiGAN
+
+    ref = HiFiGAN(80, hifigan.V1)
+    ref.load_state_dict(traffic.uniform_init(ref, "", torch.Generator().manual_seed(11), "cpu",
+                                             weight_gain=1.5))
+    ref = ref.to(device).eval()
+    port = hifigan.HiFiGANGenerator(80, hifigan.V1, device=device).eval()
+    port.load_state_dict(ref.state_dict())
+    rs = np.random.RandomState(12)
+    mel = rs.randn(1, 80, 517).astype(np.float32)
+    mean = (rs.randn(80, 1) * 0.5 - 2.5).astype(np.float32)
+    std = (rs.rand(80, 1) * 0.5 + 0.5).astype(np.float32)
+    convs, k9 = dict(hifigan.CONVS), melgan_stack.MELGAN_STACK_KERNEL.launches
+    got = decode_mel(port, mel, mean, std)
+    assert {k: hifigan.CONVS[k] - convs[k] for k in hifigan.CONV_KINDS} == \
+        {"pre": 1, "up": 4, "mrf": 72, "post": 1}
+    assert melgan_stack.MELGAN_STACK_KERNEL.launches == k9
+    with torch.no_grad():
+        x = torch.from_numpy(mel * std + mean).to(device)
+        want = ref(x * hifigan.LN10)
+    assert got.shape == want.shape == (1, 517 * 256)
+    assert 0.05 < float(want.abs().max()) < 0.99
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
 # ---------- the train step as CUDA-graph replays ----------
 #
 # Against the same steps run eagerly from the host. Batches bit for bit;
