@@ -40,6 +40,7 @@ from maskcyclegan_vc_tpu_torch.ops.layers import (
     GatedConv2d,
     InstanceNorm,
     conv,
+    conv_with,
     gated_conv,
     init_conv_params,
     norm_fn,
@@ -160,9 +161,8 @@ class Generator(nn.Module):
 
         cdt = self.dtype or x.dtype
         h = torch.stack([x * mask, mask], dim=1).to(cdt)  # (B, 2, M, T)
-        ag = nn.functional.conv2d(
-            h, torch.cat([self.conv1.weight, self.conv1_gates.weight]).to(cdt),
-            torch.cat([self.conv1.bias, self.conv1_gates.bias]).to(cdt), 1, (2, 7))
+        ag = conv_with(self.conv1, h, torch.cat([self.conv1.weight, self.conv1_gates.weight]),
+                       torch.cat([self.conv1.bias, self.conv1_gates.bias]))
         a, g = ag.chunk(2, dim=1)
         h = a * torch.sigmoid(g)
         if valid is not None:

@@ -35,6 +35,7 @@ from maskcyclegan_vc_tpu_torch.ops.in_gate import (
     instance_norm_swish,
     instance_norm_swish_plain,
 )
+from maskcyclegan_vc_tpu_torch.utils.device import CONV_AUTOTUNE
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -45,9 +46,20 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 def conv(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """``module``'s convolution (an ``nn.Conv1d`` or ``nn.Conv2d`` with zero
     padding) in x's dtype."""
-    fn = F.conv2d if module.weight.ndim == 4 else F.conv1d
-    return fn(x, module.weight.to(x.dtype), module.bias.to(x.dtype), module.stride,
-              module.padding, module.dilation, module.groups)
+    return conv_with(module, x, module.weight, module.bias)
+
+
+def conv_with(module: nn.Module, x: torch.Tensor, weight: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    """``module``'s stride, padding and dilation applied with ``weight`` and
+    ``bias``, both cast to x's dtype. Inside ``utils.device.autotune_scope``
+    the problem is noted for the ``conv.autotuned`` count."""
+    weight = weight.to(x.dtype)
+    if CONV_AUTOTUNE.on:
+        CONV_AUTOTUNE.note(x, weight, module.stride, module.padding, module.dilation)
+    fn = F.conv2d if weight.ndim == 4 else F.conv1d
+    return fn(x, weight, bias.to(x.dtype), module.stride, module.padding, module.dilation,
+              module.groups)
 
 
 class InstanceNorm(nn.Module):
@@ -105,10 +117,8 @@ def gated_conv(x: torch.Tensor, conv_h: nn.Module, norm_h: InstanceNorm,
     kernels concatenated along the output channels; its (B, 2C, ...) output
     goes whole to the IN-GLU kernel, which reads h and g as channel halves.
     """
-    fn = F.conv2d if conv_h.weight.ndim == 4 else F.conv1d
-    hg = fn(x, torch.cat([conv_h.weight, conv_g.weight]).to(x.dtype),
-            torch.cat([conv_h.bias, conv_g.bias]).to(x.dtype),
-            conv_h.stride, conv_h.padding)
+    hg = conv_with(conv_h, x, torch.cat([conv_h.weight, conv_g.weight]),
+                   torch.cat([conv_h.bias, conv_g.bias]))
     glu = norm_fn(norm_h, instance_norm_glu, instance_norm_glu_plain)
     return glu(hg, norm_h.weight, norm_h.bias, norm_g.weight, norm_g.bias, lengths)
 

@@ -26,6 +26,14 @@ does, to free memory for the graph): once per variant and process.
 On the CPU the same function runs eagerly for every step and nothing is
 captured.
 
+The f32 steps run with cuDNN's autotuner on (``utils.device.autotune_scope``,
+``autotunes``; bf16 steps keep its heuristics): every conv problem of a run
+has the same shapes at every step, so cuDNN times its candidate engines for
+each problem in the variant's eager first step and keeps the winners in its
+plan cache. The capture runs with the autotuner's timing off: it looks the
+tuned plans up, and a problem it met first would take the heuristics' plan,
+never a timing inside the capture. Replays run the captured plans.
+
 Data parallel (``rows``, and an update made with ``parallel/mesh``'s sync
 hooks): every process draws the same global batch from ``step_seed(seed,
 step)`` and trains on its contiguous ``rows`` of it, as the JAX package's
@@ -60,6 +68,7 @@ from maskcyclegan_vc_tpu_torch.train.schedules import identity_lambda
 from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, TrainState
 from maskcyclegan_vc_tpu_torch.train.step import LOGGED_METRICS
 from maskcyclegan_vc_tpu_torch.utils.debug import nan_debug_active
+from maskcyclegan_vc_tpu_torch.utils.device import autotune_scope, autotunes, cudnn_benchmark
 
 
 class StepRunner:
@@ -125,7 +134,7 @@ class StepRunner:
                                "(the trainer does)")
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph, stream=stream):
+        with cudnn_benchmark(False), torch.cuda.graph(graph, stream=stream):
             batch, out = self._body(state, update, lam_id)
         return graph, batch, out
 
@@ -137,8 +146,10 @@ class StepRunner:
     def run(self, state: TrainState, n_steps: int) -> torch.Tensor:
         """``n_steps`` steps from ``state.step``, the state updated in place;
         returns their logged metrics, (n_steps, len(LOGGED_METRICS)), on the
-        device, in ``LOGGED_METRICS`` order."""
-        with profiler.span("train.run", request=state.step):
+        device, in ``LOGGED_METRICS`` order. cuDNN's autotuner is on for the
+        span's steps where their dtype ``autotunes``, and restored after it."""
+        with profiler.span("train.run", request=state.step), \
+                autotune_scope(autotunes(self.cfg.dtype)):
             rows = torch.empty((n_steps, len(LOGGED_METRICS)), device=self.device)
             sched = self.cfg.schedule
             for j in range(n_steps):

@@ -20,7 +20,10 @@ resumes the batch stream of an uninterrupted run, in either mode:
 do (``train/trainer.py:137-151``) on a backend that is not a TPU: ``auto``
 is float32, and the kernels on the card. ``precision`` holds for the whole
 run (``utils.device.precision_scope``) and is restored after it. The plot's
-conversions run in f32, as the JAX trainer's do.
+conversions run in f32, as the JAX trainer's do. The f32 steps, in either
+mode, run with cuDNN's autotuner on (``utils.device.autotune_scope``,
+``autotunes``); the bf16 steps, and the plot's conversions and decodes at
+each utterance's own length, on its heuristics.
 
 Data parallel (``cli/train.py --distributed`` under torchrun, which joins
 the process group first: ``parallel/dist.py``), as the JAX trainer builds
@@ -96,22 +99,31 @@ from maskcyclegan_vc_tpu_torch.train.step import (
     make_update,
 )
 from maskcyclegan_vc_tpu_torch.utils.debug import check_finite, nan_debug_active
-from maskcyclegan_vc_tpu_torch.utils.device import allows_tf32, precision_scope, resolve_device
+from maskcyclegan_vc_tpu_torch.utils.device import (
+    allows_tf32,
+    autotune_scope,
+    autotunes,
+    precision_scope,
+    resolve_device,
+)
 
 DTYPES = {"auto": None, "float32": None, "bfloat16": torch.bfloat16}
 
 
 def setup_line() -> str:
     """The process's set-up by phase, from its spans: the kernel libraries
-    loaded (and how many nvcc built), the train state's creation, and the
-    first steps of each variant (eager and captured; kernel loads they
-    triggered included)."""
-    totals, built = profiler.totals(), profiler.counters().get("kernels.built", 0)
+    loaded (and how many nvcc built), the train state's creation, the
+    first steps of each variant (eager and captured; kernel loads and
+    cuDNN's timings they triggered included), and the conv problems met
+    with cuDNN's autotuner on (``conv.autotuned``)."""
+    totals, counters = profiler.totals(), profiler.counters()
     n, s = totals.get("kernels.load", (0, 0.0))
-    parts = [f"kernels {n} loaded ({built} built by nvcc) in {s:.2f} s"]
+    parts = [f"kernels {n} loaded ({counters.get('kernels.built', 0)} built by nvcc) "
+             f"in {s:.2f} s"]
     for name, label in (("train.create_state", "state"), ("train.first_step", "first step")):
         if name in totals:
             parts.append(f"{label} {totals[name][1]:.2f} s")
+    parts.append(f"conv problems autotuned {counters.get('conv.autotuned', 0)}")
     return "[setup] " + "; ".join(parts)
 
 
@@ -306,18 +318,22 @@ class Trainer:
                               console=False)
 
     def _run_steps(self, epoch: int):
-        """One epoch a step at a time; returns the per-step metric rows."""
+        """One epoch a step at a time, with cuDNN's autotuner on where the
+        dtype ``autotunes`` (each conv problem timed in the run's first step,
+        as ``StepRunner.run`` does); returns the per-step metric rows."""
         a = self.args
         rows = []
-        for _ in range(self.steps_per_epoch):
-            step = self.state.step
-            batch = sample_batch(step_generator(a.seed, step, self.device),
-                                 self.bank_A, self.bank_B, a.batch_size,
-                                 a.num_frames, a.max_mask_len)
-            batch = {k: v[self._rows] for k, v in batch.items()}
-            self.state, metrics = as_train_step(self.cfg, self.step_fn(step))(self.state, batch)
-            rows.append({k: metrics[k] for k in LOGGED_METRICS})
-            self.logger.log_iter(step + 1, epoch, rows[-1], batch_size=a.batch_size)
+        with autotune_scope(autotunes(self.cfg.dtype)):
+            for _ in range(self.steps_per_epoch):
+                step = self.state.step
+                batch = sample_batch(step_generator(a.seed, step, self.device),
+                                     self.bank_A, self.bank_B, a.batch_size,
+                                     a.num_frames, a.max_mask_len)
+                batch = {k: v[self._rows] for k, v in batch.items()}
+                self.state, metrics = as_train_step(self.cfg, self.step_fn(step))(self.state,
+                                                                                  batch)
+                rows.append({k: metrics[k] for k in LOGGED_METRICS})
+                self.logger.log_iter(step + 1, epoch, rows[-1], batch_size=a.batch_size)
         return rows
 
     def _check_metrics_finite(self, rows, epoch: int, first_step: int) -> None:

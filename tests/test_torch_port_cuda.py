@@ -732,6 +732,127 @@ def test_graph_trajectory_matches_eager(device, remat):
         assert max(errs.values()) < MOMENT_BOUND[side], max(errs.items(), key=lambda e: e[1])
 
 
+# ---------- the train step on cuDNN's autotuned algorithms ----------
+#
+# At full width, 1 x 64, with deterministic cuDNN (whose autotuner then times
+# deterministic engines only), in f32 and, though ``utils.device.autotunes``
+# keeps bf16 steps on the heuristics, in bf16 with the autotuner forced on.
+# ``StepRunner.run`` runs inside ``utils.device.autotune_scope``: its eager
+# first step times every conv problem, its capture and its replays time
+# nothing. The eager steps that the
+# graph's are held against run afterwards, outside the scope, on the plans
+# cuDNN cached for the same problems, and on a capturable state as the
+# graph's is, so that only the graph differs: each loss within chip_smoke.py's
+# bounds for steps as graph replays against steps a step at a time (f32 1e-5;
+# bf16 1e-5 before any update, its DIST_BF16_RTOL after one).
+AUTOTUNED_RTOL = {None: 1e-5, torch.bfloat16: 1e-3}
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = saved
+
+
+@pytest.fixture
+def fresh_problems(monkeypatch):
+    """A process's first conv problems, as ``conv.autotuned`` counts them;
+    the runner's steps autotuned in either dtype."""
+    from maskcyclegan_vc_tpu_torch.ops import layers
+    from maskcyclegan_vc_tpu_torch.train import graphs
+    from maskcyclegan_vc_tpu_torch.utils import device as device_mod
+
+    mine = device_mod.ConvAutotune()
+    monkeypatch.setattr(device_mod, "CONV_AUTOTUNE", mine)
+    monkeypatch.setattr(layers, "CONV_AUTOTUNE", mine)
+    monkeypatch.setattr(graphs, "autotunes", lambda dtype: True)
+    return mine
+
+
+def _full_width_training(device, dtype):
+    rs = np.random.RandomState(0)
+    banks = [MelBank.from_list([rs.randn(80, t).astype(np.float32) for t in (173, 260, 371, 517)],
+                               64, device) for _ in range(2)]
+    cfg = TrainConfig(schedule=ScheduleConfig(n_samples=4, batch_size=1), dtype=dtype)
+    update = make_update(cfg)
+    return cfg, banks, update, StepRunner(cfg, lambda step: update, *banks, 0, 1, 64, 25)
+
+
+def _autotuned():
+    from maskcyclegan_vc_tpu_torch.obs import profiler
+
+    return profiler.counters().get("conv.autotuned", 0)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_autotuned_graph_steps_match_eager_steps(device, dtype, deterministic_cudnn,
+                                                 fresh_problems):
+    cfg, banks, update, runner = _full_width_training(device, dtype)
+    graphed = create_train_state(cfg, 0, device, capturable=True)
+    counts = []
+    capture = runner.capture
+
+    def counted(*args):
+        counts.append(_autotuned())
+        out = capture(*args)
+        counts.append(_autotuned())
+        return out
+
+    runner.capture = counted
+    n0 = _autotuned()
+    got = runner.run(graphed, 3).cpu().numpy()
+    runner.run(graphed, 10)
+    torch.cuda.synchronize()
+    assert runner.replays == 12 and torch.backends.cudnn.benchmark is False
+    assert counts[0] > n0 and counts == [counts[0]] * 2 and _autotuned() == counts[0]
+    assert counts[0] - n0 == len(fresh_problems.problems)
+    eager = create_train_state(cfg, 0, device, capturable=True)
+    step = make_train_step(cfg)
+    want = []
+    for i in range(3):
+        _, m = step(eager, sample_batch(step_generator(0, i, device), *banks, 1, 64, 25))
+        want.append([m[k].item() for k in LOGGED_METRICS])
+    want = np.array(want)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=0)
+    np.testing.assert_allclose(got[1:], want[1:], rtol=AUTOTUNED_RTOL[dtype], atol=0)
+
+
+def _snapshot(state):
+    """(tensor, copy) of every parameter and Adam state tensor."""
+    out = []
+    for opt in (state.g_opt, state.d_opt):
+        for group in opt.param_groups:
+            for p in group["params"]:
+                out.append((p, p.detach().clone()))
+                out += [(v, v.clone()) for v in opt.state[p].values()
+                        if isinstance(v, torch.Tensor)]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_autotuned_replays_from_one_state_are_bit_identical(device, dtype, deterministic_cudnn,
+                                                            fresh_problems):
+    cfg, _, _, runner = _full_width_training(device, dtype)
+    state = create_train_state(cfg, 0, device, capturable=True)
+    runner.run(state, 1)  # eager, autotuned, then captured
+    assert fresh_problems.problems
+    saved = _snapshot(state)
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for t, v in saved:
+                t.copy_(v)
+        state.step = 1
+        rows = runner.run(state, 1)
+        runs.append((rows.cpu(), [t.detach().clone() for t, _ in saved]))
+    assert runner.replays == 2
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    assert not all(torch.equal(a, v) for a, (_, v) in zip(runs[0][1], saved))
+
+
 # ---------- the data-parallel step at a world of one card ----------
 
 def test_grad_sync_step_at_world_one_equals_the_plain_step(device):
