@@ -1585,8 +1585,9 @@ def phase_train(device, vocoder_ckpt: str):
     # flips the sign of Adam's first step (lr * sign(g)) wherever a gradient
     # is within rounding of 0, and the D losses of step 1 on already see
     # generators 2 lr apart there. With cuDNN held to deterministic
-    # algorithms both modes run the same sums, and differ only in the
-    # capturable Adam's f32 bias corrections: there the first 3 steps are
+    # algorithms both modes run the same sums on the same capturable Adam
+    # (the trainer's Adam form follows the device, not the flag), and
+    # differ only in how the step is issued: there the first 3 steps are
     # held to 1e-5.
     common = args + ["--epochs_per_save", "100", "--epochs_per_plot", "100"]
     ref = cli_losses(common + ["--num_epochs", "3", "--scan_epochs", "0", "--name", "eager"])

@@ -13,10 +13,12 @@ from or converts with.
         --num_epochs 6172 --batch_size 1 --num_frames 64 --max_mask_len 25 \\
         --decay_after 200000 --epochs_per_save 100 --epochs_per_plot 10
 
-``--scan_epochs 1`` (the default, as in the JAX CLI) runs each epoch with no
-host synchronisation inside it: on the card the step is a CUDA graph,
-replayed once per step (``train/graphs.py``); ``--scan_epochs 0`` dispatches
-every step from the host.
+Every epoch runs through one loop (``train/graphs.py``), whose losses are
+read from the device once, at the epoch's end, and only then logged, at the
+``--steps_per_print`` cadence. ``--scan_epochs`` is its only switch: ``1``
+(the default, as in the JAX CLI) makes the step a CUDA graph on the card,
+replayed once per step; ``0`` issues every step eagerly from the host. Both
+run the same Adam, the capturable one on the card.
 
 ``--dtype bfloat16`` trains in bf16: convolutions in bf16, the norm kernels'
 bf16 forms (f32 statistics), losses, parameters, Adam and checkpoints in
@@ -94,8 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--async_save", type=int, choices=[0, 1], default=int(d.async_save),
                    help="write checkpoint files on a thread while training goes on")
     p.add_argument("--scan_epochs", type=int, choices=[0, 1], default=int(d.scan_epochs),
-                   help="1 = each epoch with no host synchronisation inside it "
-                        "(CUDA-graph replays on the card); 0 = one step at a time")
+                   help="1 = the step as CUDA-graph replays on the card; 0 = every "
+                        "step eagerly; either way an epoch's losses are read and "
+                        "logged at its end")
     p.add_argument("--finite_check", choices=["off", "metrics", "params"],
                    default=d.finite_check,
                    help="metrics = raise at epoch end if any step's logged loss "

@@ -1,11 +1,13 @@
-"""Steps without host synchronisation: the counterpart of ``--scan_epochs``.
+"""The one loop over training steps: the counterpart of ``--scan_epochs``.
 
 The JAX trainer runs each epoch as one device program (``make_scan_epoch``,
 ``maskcyclegan_vc_tpu/train/step.py:293-328``): a ``lax.scan`` over steps
 that samples each batch on the device and returns the epoch's metrics
-stacked. ``StepRunner.run`` is its counterpart: it runs a span of steps and
-returns their logged metrics in one device buffer, (steps, 7), with no host
-read between them, so the caller reads the device once for the span.
+stacked. ``StepRunner.run`` is its counterpart, and the trainer's only loop
+over steps: it runs a span of steps and returns their logged metrics in one
+device buffer, (steps, 7), with no host read between them, so the caller
+reads the device once for the span. Its one switch is capture or not:
+``graphs`` (the trainer passes ``scan_epochs``).
 
 On the card each identity variant of the step (the sampler, the update and
 the metrics row) is a CUDA graph. The first step of a variant runs eagerly
@@ -17,14 +19,19 @@ the graph, with ``step_seed(seed, step)``, and writes both learning rates
 into the capturable Adams' device tensors. A reseeded Philox generator
 starts at offset 0, as the fresh one of ``step_generator`` does, so a step
 draws the batch that ``sample_batch(step_generator(seed, step, ...))``
-draws, bit for bit, in either mode; a run resumes across modes. The
+draws, bit for bit, captured or not; a run resumes across modes. The
 identity weight is a constant of the variant. When the trainer moves to the
 other variant (once, at the identity cutoff) the old graph and its memory
 are dropped. A capture synchronises the device once (``torch.cuda.graph``
 does, to free memory for the graph): once per variant and process.
 
-On the CPU the same function runs eagerly for every step and nothing is
-captured.
+On the CPU, on a runner built with ``graphs=False``, and inside
+``utils.debug.nan_debug_mode`` (whose checks a replay would skip) the same
+function runs eagerly for every step, on the current stream, and nothing is
+captured. The step, the sampler's reseeding and the learning-rate writes are
+the same as under capture, and so is the optimizer: the state's Adams are
+capturable on the card whatever ``graphs`` says, so the two modes differ
+only in how the step's kernels are issued.
 
 The f32 steps run with cuDNN's autotuner on (``utils.device.autotune_scope``,
 ``autotunes``; bf16 steps keep its heuristics): every conv problem of a run
@@ -78,13 +85,17 @@ class StepRunner:
     the step's identity variant, the same object for every step of a
     variant. ``batch_size`` is the global batch, of which the step trains
     on ``rows``. The state's optimizers must be capturable on the card
-    (``create_train_state(..., capturable=True)``).
+    (``create_train_state(..., capturable=True)``). ``graphs``: capture
+    each variant on the card and replay it (True), or run every step
+    eagerly (False).
     """
 
     def __init__(self, cfg: TrainConfig, update_for: Callable[[int], Callable],
                  bank_a: MelBank, bank_b: MelBank, seed: int, batch_size: int,
-                 num_frames: int, max_mask_len: int, rows: slice = slice(None)):
+                 num_frames: int, max_mask_len: int, rows: slice = slice(None),
+                 graphs: bool = True):
         self.cfg = cfg
+        self.graphs = graphs
         self.rows = rows     # this process's rows of the global batch
         self.update_for = update_for
         self.banks = (bank_a, bank_b)
@@ -147,7 +158,10 @@ class StepRunner:
         """``n_steps`` steps from ``state.step``, the state updated in place;
         returns their logged metrics, (n_steps, len(LOGGED_METRICS)), on the
         device, in ``LOGGED_METRICS`` order. cuDNN's autotuner is on for the
-        span's steps where their dtype ``autotunes``, and restored after it."""
+        span's steps where their dtype ``autotunes``, and restored after it.
+        Every step runs eagerly on the CPU, without ``graphs`` and inside
+        ``nan_debug_mode``."""
+        eager = self.device.type == "cpu" or not self.graphs or nan_debug_active()
         with profiler.span("train.run", request=state.step), \
                 autotune_scope(autotunes(self.cfg.dtype)):
             rows = torch.empty((n_steps, len(LOGGED_METRICS)), device=self.device)
@@ -159,7 +173,7 @@ class StepRunner:
                 with profiler.span("train.inputs", request=state.step):
                     self.generator.manual_seed(step_seed(self.seed, state.step))
                     state.set_learning_rates(sched)
-                if self.device.type == "cpu":
+                if eager:
                     self.batch, rows[j] = self._body(state, update, lam_id)
                 elif self.graph is not None and self.graph[0] is update:
                     self.replay(self.graph[1])

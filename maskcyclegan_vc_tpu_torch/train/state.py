@@ -103,7 +103,10 @@ def make_optimizer(cfg: TrainConfig, params, capturable: bool = False) -> torch.
     ``capturable``: the form a CUDA graph can capture, for parameters on the
     card: the step count and the bias corrections stay on the device and the
     lr is a float32 device tensor (torch supports this only on devices it
-    lists, the CPU not among them)."""
+    lists, the CPU not among them). The trainer's Adam form follows the
+    device alone: capturable on the card, whether its steps are captured
+    or run eagerly, so both run the same f32 bias corrections on the
+    device; the plain form, host f64 corrections, on the CPU."""
     if not capturable:
         return torch.optim.Adam(params, lr=cfg.schedule.generator_lr,
                                 betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps)

@@ -2,27 +2,26 @@
 
 Counterpart of ``maskcyclegan_vc_tpu/train/trainer.py``. The
 identity-loss variant of the step switches off after
-``stop_identity_after // batch_size`` steps. Batches are drawn on the
-device from a generator seeded by (seed, step), so ``--continue_train``
-resumes the batch stream of an uninterrupted run, in either mode:
-
-- ``scan_epochs`` (the default, as in the JAX trainer): each epoch runs
-  through ``train.graphs.StepRunner``, CUDA-graph replays on the card,
-  with no host synchronisation inside the epoch; the epoch's metrics are
-  read from the device once, at its end, and then logged step by step.
-- otherwise one step at a time from the host, the device read only at the
-  print cadence and at the epoch's end. Inside
-  ``utils.debug.nan_debug_mode`` every epoch runs this way, whatever
-  ``scan_epochs`` says: a CUDA graph would hide the operations from its
-  checks.
+``stop_identity_after // batch_size`` steps. Every epoch runs through one
+loop, ``train.graphs.StepRunner.run``, which draws each batch on the device
+from a generator seeded by (seed, step), so ``--continue_train`` resumes
+the batch stream of an uninterrupted run, whatever ``scan_epochs`` says.
+Its only switch is whether the card captures the step: with
+``scan_epochs`` (the default, as in the JAX trainer) each identity variant
+is a CUDA graph, replayed for every later step; without it, or inside
+``utils.debug.nan_debug_mode`` (a CUDA graph would hide the operations from
+its checks), or on the CPU, every step runs eagerly. Either way the epoch's
+metrics are read from the device once, at its end, and then logged step by
+step. The Adam form follows the device alone: the capturable one on the
+card, captured or not, and torch's plain one on the CPU.
 
 ``dtype``, ``precision`` and ``fused_norms`` resolve as the JAX trainer's
 do (``train/trainer.py:137-151``) on a backend that is not a TPU: ``auto``
 is float32, and the kernels on the card. ``precision`` holds for the whole
 run (``utils.device.precision_scope``) and is restored after it. The plot's
-conversions run in f32, as the JAX trainer's do. The f32 steps, in either
-mode, run with cuDNN's autotuner on (``utils.device.autotune_scope``,
-``autotunes``); the bf16 steps, and the plot's conversions and decodes at
+conversions run in f32, as the JAX trainer's do. The f32 steps, captured
+or not, run with cuDNN's autotuner on (``StepRunner.run`` turns it on
+for them); the bf16 steps, and the plot's conversions and decodes at
 each utterance's own length, on its heuristics.
 
 Data parallel (``cli/train.py --distributed`` under torchrun, which joins
@@ -32,7 +31,7 @@ the same state, which ``parallel.mesh.replicate`` then broadcasts from rank
 0; each draws the same global batch and trains on its contiguous
 ``batch_size / world`` rows, and each side's gradients and the logged
 losses are averaged over the processes (``parallel.mesh.explicit_sync_fns``,
-on a ``grad_allreduce_dtype`` wire), in either mode. A batch that the world
+on a ``grad_allreduce_dtype`` wire), captured or not. A batch that the world
 does not divide raises; a batch smaller than the world runs replicated
 (every process the whole batch, no collectives), with a warning. Only rank
 0 writes checkpoints, plots and logs.
@@ -45,11 +44,11 @@ logger closed.
 
 The log's timings come from the program's spans (``obs/profiler.py``):
 each epoch is a ``train.epoch`` span holding ``train.readback``,
-``train.plot`` and ``train.save``, and its line gives their ms; under
-``scan_epochs`` a step's ``ms/it`` is the epoch's ``train.run`` span plus
-its read-back over its steps (the metrics of a whole epoch reach the logger
-at once). After the first epoch one ``[setup]`` line gives the kernel
-loads, the state's creation and the first steps (``setup_line``).
+``train.plot`` and ``train.save``, and its line gives their ms; a step's
+``ms/it`` is the epoch's ``train.run`` span plus its read-back over its
+steps (the metrics of a whole epoch reach the logger at once). After the
+first epoch one ``[setup]`` line gives the kernel loads, the state's
+creation and the first steps (``setup_line``).
 """
 
 from __future__ import annotations
@@ -63,12 +62,7 @@ import torch.distributed as dist
 
 from maskcyclegan_vc_tpu_torch.cli.test import make_convert_fn
 from maskcyclegan_vc_tpu_torch.data.griffin_lim import decode_mel_griffin_lim
-from maskcyclegan_vc_tpu_torch.data.dataset import (
-    MelBank,
-    load_speaker,
-    sample_batch,
-    step_generator,
-)
+from maskcyclegan_vc_tpu_torch.data.dataset import MelBank, load_speaker
 from maskcyclegan_vc_tpu_torch.io.checkpoint import (
     AsyncSaver,
     checkpoint_path,
@@ -92,20 +86,9 @@ from maskcyclegan_vc_tpu_torch.parallel.mesh import (
 from maskcyclegan_vc_tpu_torch.train.graphs import StepRunner
 from maskcyclegan_vc_tpu_torch.train.schedules import ScheduleConfig
 from maskcyclegan_vc_tpu_torch.train.state import TrainConfig, create_train_state
-from maskcyclegan_vc_tpu_torch.train.step import (
-    LOGGED_METRICS,
-    METRICS,
-    as_train_step,
-    make_update,
-)
-from maskcyclegan_vc_tpu_torch.utils.debug import check_finite, nan_debug_active
-from maskcyclegan_vc_tpu_torch.utils.device import (
-    allows_tf32,
-    autotune_scope,
-    autotunes,
-    precision_scope,
-    resolve_device,
-)
+from maskcyclegan_vc_tpu_torch.train.step import LOGGED_METRICS, METRICS, make_update
+from maskcyclegan_vc_tpu_torch.utils.debug import check_finite
+from maskcyclegan_vc_tpu_torch.utils.device import allows_tf32, precision_scope, resolve_device
 
 DTYPES = {"auto": None, "float32": None, "bfloat16": torch.bfloat16}
 
@@ -158,8 +141,8 @@ class TrainerArgs:
     remat: bool = False
     sample_rate: int = 22050
     async_save: bool = True
-    # Each epoch with no host synchronisation inside it: CUDA-graph replays
-    # on the card (train/graphs.py); False = one step at a time.
+    # The step as CUDA-graph replays on the card (train/graphs.py); False =
+    # every step eagerly. Either way the epoch is read once, at its end.
     scan_epochs: bool = True
     # "metrics": raise at epoch end if any step's logged loss is not
     # finite; "params": also check the whole state before each checkpoint
@@ -216,7 +199,7 @@ class Trainer:
         self._step_fns = {}
 
         self.state = create_train_state(self.cfg, a.seed, self.device,
-                                        capturable=a.scan_epochs and self.device.type == "cuda")
+                                        capturable=self.device.type == "cuda")
         self.start_epoch = 1
         self.ckpt_dir = os.path.join(a.save_dir, a.name, "ckpts")
         if a.continue_train:
@@ -225,11 +208,10 @@ class Trainer:
                 load_train_state(checkpoint_path(self.ckpt_dir, last), self.state)
                 self.start_epoch = last + 1
         self._sync, self._rows = self._build_world()
-        self._runner = None
-        if a.scan_epochs:
-            self._runner = StepRunner(self.cfg, lambda step: self.step_fn(step),
-                                      self.bank_A, self.bank_B, a.seed, a.batch_size,
-                                      a.num_frames, a.max_mask_len, rows=self._rows)
+        self._runner = StepRunner(self.cfg, lambda step: self.step_fn(step),
+                                  self.bank_A, self.bank_B, a.seed, a.batch_size,
+                                  a.num_frames, a.max_mask_len, rows=self._rows,
+                                  graphs=a.scan_epochs)
 
         self.vocoder = (load_vocoder(a.vocoder_ckpt, self.device)
                         if a.vocoder_ckpt and rank() == 0 else None)
@@ -286,22 +268,17 @@ class Trainer:
         for epoch in range(self.start_epoch, a.num_epochs + 1):
             first = self.state.step + 1
             with profiler.span("train.epoch", request=epoch) as ep:
-                if self._runner is not None and not nan_debug_active():
-                    out = self._runner.run(self.state, self.steps_per_epoch)
-                    with profiler.span("train.readback") as back:
-                        vals = out.cpu().tolist()  # the epoch's one read of the device
-                    # A step's time: its share of issuing the span and waiting for it.
-                    step_s = ((profiler.last("train.run").seconds + back.seconds)
-                              / self.steps_per_epoch)
-                    rows = [dict(zip(LOGGED_METRICS, v)) for v in vals]
-                    for i, row in enumerate(rows):
-                        self.logger.log_iter(first + i, epoch, row, batch_size=a.batch_size,
-                                             seconds=step_s)
-                    self._check_metrics_finite(rows, epoch, first)
-                else:
-                    rows = self._run_steps(epoch)
-                    with profiler.span("train.readback") as back:
-                        self._check_metrics_finite(rows, epoch, first)
+                out = self._runner.run(self.state, self.steps_per_epoch)
+                with profiler.span("train.readback") as back:
+                    vals = out.cpu().tolist()  # the epoch's one read of the device
+                # A step's time: its share of issuing the span and waiting for it.
+                step_s = ((profiler.last("train.run").seconds + back.seconds)
+                          / self.steps_per_epoch)
+                rows = [dict(zip(LOGGED_METRICS, v)) for v in vals]
+                for i, row in enumerate(rows):
+                    self.logger.log_iter(first + i, epoch, row, batch_size=a.batch_size,
+                                         seconds=step_s)
+                self._check_metrics_finite(rows, epoch, first)
                 plot = save = None
                 if epoch % a.epochs_per_plot == 0:
                     with profiler.span("train.plot") as plot:
@@ -316,25 +293,6 @@ class Trainer:
             self.logger.write(f"epoch {epoch} done in {ep.seconds:.1f}s ("
                               + ", ".join(f"{k} {v}" for k, v in ms.items()) + ")",
                               console=False)
-
-    def _run_steps(self, epoch: int):
-        """One epoch a step at a time, with cuDNN's autotuner on where the
-        dtype ``autotunes`` (each conv problem timed in the run's first step,
-        as ``StepRunner.run`` does); returns the per-step metric rows."""
-        a = self.args
-        rows = []
-        with autotune_scope(autotunes(self.cfg.dtype)):
-            for _ in range(self.steps_per_epoch):
-                step = self.state.step
-                batch = sample_batch(step_generator(a.seed, step, self.device),
-                                     self.bank_A, self.bank_B, a.batch_size,
-                                     a.num_frames, a.max_mask_len)
-                batch = {k: v[self._rows] for k, v in batch.items()}
-                self.state, metrics = as_train_step(self.cfg, self.step_fn(step))(self.state,
-                                                                                  batch)
-                rows.append({k: metrics[k] for k in LOGGED_METRICS})
-                self.logger.log_iter(step + 1, epoch, rows[-1], batch_size=a.batch_size)
-        return rows
 
     def _check_metrics_finite(self, rows, epoch: int, first_step: int) -> None:
         """Every step's logged losses, read in one transfer; a failing

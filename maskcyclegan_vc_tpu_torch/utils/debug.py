@@ -28,9 +28,9 @@ stack outside the mode. Autograd carries that stack to the device thread on
 which it runs a CUDA backward, and so K5.
 
 CUDA graphs hide the operations from the mode, as ``jit`` hides them from
-``jax.debug_nans``: inside the mode the trainer runs a step at a time
-whatever ``--scan_epochs`` says, and a capture (``train/graphs.py``)
-raises.
+``jax.debug_nans``: inside the mode the trainer's step runner
+(``train/graphs.py``) runs every step eagerly whatever ``--scan_epochs``
+says, and a capture raises.
 """
 
 from __future__ import annotations

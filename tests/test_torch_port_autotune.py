@@ -146,8 +146,9 @@ def corpus(tmp_path_factory):
 
 @pytest.mark.parametrize("scan", [True, False])
 def test_trainer_steps_inside_the_scope_and_its_plot_outside(corpus, scan):
-    """Both loops' steps see the autotuner on; the plot's two conversions
-    and four vocoder decodes see it off, as does the caller after."""
+    """The runner's steps, captured or not, see the autotuner on; the
+    plot's two conversions and four vocoder decodes see it off, as does the
+    caller after."""
     trainer = Trainer(TrainerArgs(
         name=f"autotune{int(scan)}", save_dir=str(corpus / "results"),
         preprocessed_data_dir=str(corpus / "pre"), num_epochs=1, batch_size=1, num_frames=16,

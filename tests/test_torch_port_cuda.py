@@ -19,7 +19,8 @@ summation error grows with the sum of the terms' magnitudes, so their bound
 is 1e-5 of that sum (see ``_sum_bound``). The mel frontend (K8) and the
 MelGAN stage (K9) have their tolerances stated beside their tests. The
 shuffles (K6, K7) are permutations and must be exact. Then the train step
-as CUDA-graph replays against the same steps run eagerly. The bf16 entries
+as CUDA-graph replays against the same steps run eagerly, and the trainer's
+epochs with and without capture. The bf16 entries
 have their own section and tolerances at the end.
 """
 
@@ -851,6 +852,50 @@ def test_autotuned_replays_from_one_state_are_bit_identical(device, dtype, deter
     assert torch.equal(runs[0][0], runs[1][0])
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
     assert not all(torch.equal(a, v) for a, (_, v) in zip(runs[0][1], saved))
+
+
+# ---------- the trainer's one loop, captured and not ----------
+
+def test_trainer_scan_epochs_modes_run_one_adam(device, deterministic_cudnn, tmp_path):
+    """Two trainers on the card, f32 1 x 64 at full width, --scan_epochs 1
+    and 0, three steps each, with deterministic cuDNN: both states' Adams
+    are capturable, the eager runner captures nothing, and the logged
+    losses agree within 1e-5 relative, the bound chip_smoke.py's train
+    phase holds the two CLI runs to."""
+    from maskcyclegan_vc_tpu_torch.data.dataset import save_speaker
+    from maskcyclegan_vc_tpu_torch.train.trainer import Trainer, TrainerArgs
+
+    rs = np.random.RandomState(0)
+    for sid in ("SA", "SB"):
+        save_speaker(str(tmp_path / "pre"), sid,
+                     [rs.randn(80, t).astype(np.float32) for t in (173, 260, 371)],
+                     rs.randn(80, 1).astype(np.float32),
+                     (rs.rand(80, 1) + 0.5).astype(np.float32))
+    losses, runners = {}, {}
+    for scan in (True, False):
+        trainer = Trainer(TrainerArgs(
+            name=f"scan{int(scan)}", save_dir=str(tmp_path / "out"), speaker_A_id="SA",
+            speaker_B_id="SB", preprocessed_data_dir=str(tmp_path / "pre"), num_epochs=1,
+            batch_size=1, num_frames=64, epochs_per_save=100, epochs_per_plot=100,
+            steps_per_print=1, async_save=False, scan_epochs=scan, device="cuda"))
+        assert all(group["capturable"] for opt in (trainer.state.g_opt, trainer.state.d_opt)
+                   for group in opt.param_groups)
+        rows, log_iter = [], trainer.logger.log_iter
+
+        def logged(step, epoch, row, rows=rows, log_iter=log_iter, **kw):
+            rows.append([row[k] for k in LOGGED_METRICS])
+            log_iter(step, epoch, row, **kw)
+
+        trainer.logger.log_iter = logged
+        trainer.train()
+        losses[scan], runners[scan] = np.array(rows), trainer._runner
+    assert losses[True].shape == losses[False].shape == (3, len(LOGGED_METRICS))
+    assert runners[True].replays == 2 and runners[True].graph is not None
+    assert runners[False].replays == 0 and runners[False].graph is None
+    rel = np.abs(losses[True] - losses[False]) / np.abs(losses[False])
+    print(f"--scan_epochs 1 against 0, f32 1 x 64, deterministic cuDNN: logged losses of "
+          f"steps 1-3 within {rel.max():.3g} relative (bound 1e-5)")
+    np.testing.assert_allclose(losses[True], losses[False], rtol=1e-5, atol=0)
 
 
 # ---------- the data-parallel step at a world of one card ----------

@@ -232,15 +232,18 @@ def test_trainer_metrics_check_raises_with_remedy(corpus):
 
 
 def test_trainer_under_the_mode_runs_a_step_at_a_time(corpus, monkeypatch):
-    """With --scan_epochs 1 the trainer inside the mode never enters the
-    step runner, and its epoch equals a --scan_epochs 0 epoch outside the
-    mode bit for bit."""
+    """With --scan_epochs 1 the trainer's step runner inside the mode runs
+    every step eagerly and never captures, and its epoch equals a
+    --scan_epochs 0 epoch outside the mode bit for bit."""
+    from maskcyclegan_vc_tpu_torch.train.graphs import StepRunner
+
     inside = _trainer(corpus, "inside", scan=True)
 
-    def no_runner(*args, **kwargs):
-        raise AssertionError("the step runner ran inside nan_debug_mode")
+    def no_capture(*args, **kwargs):
+        raise AssertionError("the step runner captured inside nan_debug_mode")
 
-    monkeypatch.setattr(inside._runner, "run", no_runner)
+    monkeypatch.setattr(StepRunner, "_first_step", no_capture)
+    monkeypatch.setattr(StepRunner, "capture", no_capture)
     with nan_debug_mode():
         inside.train()
     outside = _trainer(corpus, "outside", scan=False)
